@@ -14,6 +14,23 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             and 32 query PDBs, at bf16 and int8: every query's planted row
             is its rank-1 hit with TM-score >= 0.9, and both kernels'
             launch counters rose during these runs.
+6. pipelined the pipelined two-batch scan through its tool
+            (tools/perf_pipelined: 2^24 rows, Q = 64 and 256, k = 100, bf16
+            and int8): equal to the sequential fused_topk exactly on 3
+            batches plus a drain, and its per-batch time beside the
+            sequential one; then its kernel (bm_gather) against its plain
+            version at N = 500,000 and at 2^24 rows, timed there.
+7. probes   the scan's floor probes through their tools (tools/perf_hbm,
+            perf_int8_floor, perf_floor2 at 2^24 rows, Q = 256): the read
+            rate, the dot alone and the dot with the reduce; then mini_scan
+            (both modes, both dtypes) and stream_probe against their plain
+            versions, sinks included, timed there.
+
+Each path (e2e, pipelined, probes) starts with every kernel's launch count
+at 0 and fails unless each of its kernels was launched. The 2^24-row rows of
+phases 3, 6 and 7 share one bf16 and one int8 DB a run (the tools' synthetic
+DB); the kernel table takes the probes' times and bounds from their tools'
+rows and times only the plain versions and library calls itself.
 
 Prints one line per phase with its seconds, the nvidia-smi line, a JSON line
 {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
@@ -28,7 +45,6 @@ import faulthandler
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -36,12 +52,14 @@ import time
 import numpy as np
 import torch
 
+from merizo_search_tpu_torch.tools import _bench_util
+from merizo_search_tpu_torch.tools._bench_util import bound, device_line
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_BUDGET_S = 300       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
-PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90}
-HBM_BPS = 3.35e12          # H100 SXM memory bandwidth (bytes/s)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}   # dense tensor-core peaks (op/s)
+PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
+                  "pipelined": 20, "probes": 25}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -83,37 +101,24 @@ def time_ms(fn, iters=10, flush=None):
     """Mean device time of fn() in ms, from CUDA events around each call;
     `flush` (a large buffer) is rewritten before each call, outside the
     timed window, so the call finds the 50 MB L2 cold, as the pipeline does."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    return _bench_util.time_ms(fn, torch.device("cuda"), iters, flush)
 
 
-def bound(nbytes, ops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def max_err(got, want, exact):
+def max_err(got, want, exact, rel=False):
     """Max |got - want| over entries that are not sentinels; the sentinel
-    pattern and (for int8) every value must agree exactly."""
+    pattern and (for int8) every value must agree exactly. bf16 entries may
+    differ by BF16_TOL, times max(1, |want|) where `rel` (rows that are not
+    unit-norm)."""
     from merizo_search_tpu_torch.ops.blockmax import NEG_CAP
 
     gm, wm = got <= NEG_CAP, want <= NEG_CAP
     check(torch.equal(gm, wm), "kernel and plain versions disagree on masked entries")
-    err = (got[~wm] - want[~wm]).abs().max().item() if (~wm).any() else 0.0
-    check(err <= (0.0 if exact else BF16_TOL), f"kernel deviates from plain by {err}")
-    return err
+    if not (~wm).any():
+        return 0.0
+    diff, w = (got[~wm] - want[~wm]).abs(), want[~wm]
+    allowed = 0.0 if exact else BF16_TOL * (w.abs().clamp(min=1.0) if rel else 1.0)
+    check(bool((diff <= allowed).all()), f"kernel deviates from plain by {diff.max().item()}")
+    return diff.max().item()
 
 
 def unit_rows(n, gen, dev, chunk=1 << 20):
@@ -149,10 +154,18 @@ def make_problem(n, nq, gen, dev):
                      torch.from_numpy(sc).to(dev))}
 
 
-def kernels_phase(dev, gen, flush):
+def big_dbs(gen, dev):
+    """The one bf16 and one int8 DB of N_BIG rows a run: the tools' synthetic
+    DB (_bench_util.make_db), shared by the 16M-row rows of the kernels
+    phase and by the pipelined and probes phases and their tools."""
+    return {dtype: _bench_util.make_db(N_BIG, dtype, gen, dev) for dtype in ("bf16", "int8")}
+
+
+def kernels_phase(dev, gen, flush, big):
     """Hold both kernels against their plain versions, then time them."""
     from merizo_search_tpu_torch.ops import blockmax, gather
-    from merizo_search_tpu_torch.ops.fused_scan import select_blocks
+    from merizo_search_tpu_torch.ops.fused_scan import select_blocks, selected_scales
+    from merizo_search_tpu_torch.tools.perf_pipelined import make_queries
 
     bm_modes, g_modes = [], []
     p = make_problem(N_MAIN, 256, gen, dev)
@@ -211,18 +224,9 @@ def kernels_phase(dev, gen, flush):
     del p
     torch.cuda.empty_cache()
     # the 16M-row scan shape, Q = 256: kernel times and bounds only
-    q16 = unit_rows(256, gen, dev)
     for dtype in ("bf16", "int8"):
-        if dtype == "bf16":
-            db = torch.randn((N_BIG, 128), generator=gen, device=dev, dtype=torch.bfloat16)
-            q, sc = q16.to(torch.bfloat16), None
-        else:
-            db = torch.randint(-127, 128, (N_BIG, 128), generator=gen, device=dev,
-                               dtype=torch.int8)
-            q = torch.randint(-127, 128, (256, 128), generator=gen, device=dev,
-                              dtype=torch.int8)
-            sc = (torch.rand(N_BIG // 128, generator=gen, device=dev) * 0.01 + 1e-3
-                  ).repeat_interleave(128)
+        db, sc = big[dtype]
+        q = make_queries(256, dtype, gen, dev)[0]
         isz, nb = db.element_size(), N_BIG // 128
         bm = blockmax.blockmax_scan(q, db, N_BIG, scales=sc)
         ms = time_ms(lambda: blockmax.blockmax_scan(q, db, N_BIG, scales=sc), 5, flush)
@@ -234,8 +238,7 @@ def kernels_phase(dev, gen, flush):
                          "max_abs_err": None, "ms": ms, "plain_ms": None,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
         bidx = select_blocks(bm, N_BIG, 100)
-        kw = {} if sc is None else {"scale_sel": torch.where(
-            bidx >= 0, sc[bidx.clamp(min=0).long() * 128], 1.0).contiguous()}
+        kw = {} if sc is None else {"scale_sel": selected_scales(sc, bidx)}
         gms = time_ms(lambda: gather.gather_block_scores(q, db, bidx, N_BIG, **kw), 10, flush)
         nblk = int(torch.unique(bidx[bidx >= 0]).numel())
         gb_ms, gb_by = bound(nblk * 128 * 128 * isz + 256 * 128 * isz
@@ -246,8 +249,7 @@ def kernels_phase(dev, gen, flush):
                         "n": N_BIG, "q": 256, "kb": bidx.shape[1], "max_abs_err": None,
                         "ms": gms, "plain_ms": None, "bound_ms": gb_ms,
                         "bound_by": gb_by, "library_ms": None})
-        del db, bm
-        torch.cuda.empty_cache()
+        del bm
     return bm_modes, g_modes
 
 
@@ -288,6 +290,156 @@ def fused_phase(dev, gen):
                                   pv.cpu().numpy(), pi.cpu().numpy(), k)
         check(out[dtype] == 1.0, f"fused_topk {dtype} recall@{k} = {out[dtype]}")
     return out
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0: a path starts here."""
+    from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes
+
+    blockmax.launches = gather.launches = pipelined.launches = 0
+    for name in probes.launches:
+        probes.launches[name] = 0
+
+
+def launch_counts():
+    from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes
+
+    return {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches,
+            "blockmax_scan_gather": pipelined.launches, **probes.launches}
+
+
+def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100):
+    """Hold the pipelined kernel against its plain version on one batch and
+    the previous batch's top-(k+1) blocks (int8: with their carried block
+    scales, as fused_topk_step passes them), then time it, the plain version
+    and, as a labelled yardstick, the two sequential launches it replaces
+    (phase A, then phase C) on the same inputs."""
+    from merizo_search_tpu_torch.ops import blockmax, gather, pipelined
+    from merizo_search_tpu_torch.ops.fused_scan import select_blocks, selected_scales
+
+    pv_bidx = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, k)
+    ss = None if sc is None else selected_scales(sc, pv_bidx)
+    args = (q, db, n, pv_q, pv_bidx, sc, ss)
+    got = pipelined.blockmax_scan_gather(*args)
+    torch.cuda.synchronize()
+    want = pipelined.blockmax_scan_gather_plain(*args)
+    err = max(max_err(g, w, dtype == "int8", rel) for g, w in zip(got, want))
+    del got, want
+    ms = time_ms(lambda: pipelined.blockmax_scan_gather(*args), 5, flush)
+    plain_ms = time_ms(lambda: pipelined.blockmax_scan_gather_plain(*args), 1, flush)
+    seq_ms = time_ms(lambda: (blockmax.blockmax_scan(q, db, n, scales=sc),
+                              gather.gather_block_scores(pv_q, db, pv_bidx, n, scale_sel=ss)),
+                     5, flush)
+    # the fused launch with an empty previous selection runs phase A alone
+    no_prev = pv_bidx.new_empty((pv_q.shape[0], 0))
+    a_only_ms = time_ms(lambda: pipelined.blockmax_scan_gather(q, db, n, pv_q, no_prev, sc),
+                        5, flush)
+    nq, nqp, kb = q.shape[0], pv_q.shape[0], pv_bidx.shape[1]
+    npad, isz = db.shape[0], db.element_size()
+    nb = npad // 128
+    nbytes = (npad * 128 * isz + (nq + nqp) * 128 * isz + pv_bidx.numel() * 4
+              + (nb * 4 + pv_bidx.numel() * 4 if sc is not None else 0)
+              + nq * nb * 4 + nqp * kb * 128 * 4)
+    ops = 2 * nq * npad * 128 + 2 * int((pv_bidx >= 0).sum()) * 128 * 128
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    return {"dtype": dtype, "n": npad, "q": nq, "kb": kb, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "sequential_kernels_ms": seq_ms, "fused_phase_a_only_ms": a_only_ms}
+
+
+def pipelined_phase(dev, gen, flush, big):
+    """The pipelined path through its tool on the run's 2^24-row DBs, then
+    its kernel against the plain version at the 500k problem (unit rows,
+    ragged n, Q = 64) and at 2^24 rows (the tool's queries, Q = 256)."""
+    from merizo_search_tpu_torch.tools import perf_pipelined
+
+    reset_counts()                                   # the pipelined path starts here
+    tool = perf_pipelined.main(["--log2-rows", "24", "--q", "64,256", "--k", "100",
+                                "--dtype", "both", "--repeats", "8"], dbs=big)
+    counts = launch_counts()
+    check(counts["blockmax_scan_gather"] > 0, "the pipelined path never launched bm_gather")
+    for r in tool["runs"]:
+        check(r["exact"], f"pipelined scan differs from the sequential fused_topk: {r}")
+    modes = []
+    p = make_problem(N_MAIN, 128, gen, dev)
+    for dtype in ("bf16", "int8"):
+        q, db, sc = p[dtype]
+        modes.append(bm_gather_mode(dtype, q[:64].contiguous(), q[64:].contiguous(), db,
+                                    sc, p["n"], False, flush))
+    del p
+    torch.cuda.empty_cache()
+    for dtype in ("bf16", "int8"):
+        db, sc = big[dtype]
+        qs = perf_pipelined.make_queries(256, dtype, gen, dev)
+        modes.append(bm_gather_mode(dtype, qs[0], qs[1], db, sc, N_BIG, True, flush))
+    return tool, counts, modes
+
+
+def tool_row(rows, **key):
+    """The one row of a tool's output that matches `key`."""
+    got = [r for r in rows if all(r.get(k) == v for k, v in key.items())]
+    check(len(got) == 1, f"expected one tool row for {key}, found {len(got)}")
+    return got[0]
+
+
+def probes_phase(dev, gen, flush, big):
+    """The floor probes through their tools on the run's 2^24-row DBs (the
+    2 GiB int8 DB is stream_probe's buffer), then mini_scan (both modes,
+    both dtypes, tile 32768, nslab 4, Q = 256) and stream_probe against
+    their plain versions on the tools' inputs, sinks included. Kernel times
+    and bounds are the tools' rows; the plain versions and the library
+    yardstick are timed here."""
+    from merizo_search_tpu_torch.ops import probes
+    from merizo_search_tpu_torch.tools import perf_floor2, perf_hbm, perf_int8_floor
+
+    reset_counts()                                   # the probes path starts here
+    tools = {"perf_hbm": perf_hbm.main(["--iters", "5"], x=big["int8"][0]),
+             "perf_int8_floor": perf_int8_floor.main(["2", "4", "--iters", "3"], dbs=big),
+             "perf_floor2": perf_floor2.main(["--dtypes", "bf16", "--tiles", "32768,65536",
+                                              "--nslabs", "2,4", "--iters", "3"], dbs=big)}
+    counts = launch_counts()
+    for name in ("mini_scan", "stream_probe"):
+        check(counts[name] > 0, f"the probes path never launched {name}")
+    mini, stream = [], []
+    for dtype, tool in (("bf16", "perf_floor2"), ("int8", "perf_int8_floor")):
+        db, _ = big[dtype]
+        q = perf_floor2.make_queries(db, 256, dtype)
+        for mode in probes.MODES:
+            args = (q, db, probes.TILE, 4, mode)
+            got, sink = probes.mini_scan(*args)
+            torch.cuda.synchronize()
+            want, wsink = probes.mini_scan_plain(*args)
+            err = max_err(got, want, dtype == "int8", rel=True)
+            serr = abs(sink.item() - wsink.item())
+            check(serr <= (0.0 if dtype == "int8" else BF16_TOL * max(1.0, abs(wsink.item()))),
+                  f"mini_scan {dtype} {mode}: sink {sink.item()} vs plain {wsink.item()}")
+            del got, want
+            row = tool_row(tools[tool]["rows"], dtype=dtype, q=256, tile=probes.TILE,
+                           nslab=4, mode=mode)
+            mini.append({"dtype": dtype, "mode": mode, "n": N_BIG, "q": 256,
+                         "tile": probes.TILE, "nslab": 4, "max_abs_err": err,
+                         "sink_err": serr, "ms": row["ms"], "ms_from": tool,
+                         "plain_ms": time_ms(lambda: probes.mini_scan_plain(*args), 1, flush),
+                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                         "library_ms": time_ms(lambda: library_product(q, db), 3, flush)})
+    x = big["int8"][0]
+    hbm = tools["perf_hbm"]["rows"]
+    for view, tile in ((x, 65536), (x.view(-1, 1024), 8192)):
+        o, sink = probes.stream_probe(view, 1.0, tile)
+        torch.cuda.synchronize()
+        wo, wsink = probes.stream_probe_plain(view, 1.0, tile)
+        check(torch.equal(o, wo) and sink.item() == wsink.item(),
+              f"stream_probe d={view.shape[1]}: output or sink differs from plain")
+        b_ms, b_by = bound(view.numel() + o.numel() * 4 + 4, 0, "int8")
+        stream.append({"d": view.shape[1], "tile": tile, "bytes": view.numel(),
+                       "max_abs_err": 0.0,
+                       "ms": tool_row(hbm, d=view.shape[1], tile=tile)["ms"],
+                       "ms_from": "perf_hbm",
+                       "plain_ms": time_ms(lambda: probes.stream_probe_plain(view, 1.0, tile),
+                                           3, flush),
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                       "torch_sum_ms": tool_row(hbm, tile=0)["ms"]})
+    return tools, counts, mini, stream
 
 
 def walk(rng, n):
@@ -370,7 +522,7 @@ def e2e_phase(dev, tmp):
     write_quantized_sidecar(prefix, "int8")
     check(FlatDB.open(prefix).has_quant("int8"), "int8 sidecar missing")
 
-    blockmax.launches = gather.launches = 0        # main path starts here
+    reset_counts()                                 # the search path starts here
     runs = {}
     for prec in ("bf16", "int8"):
         profiling.reset()
@@ -398,8 +550,7 @@ def e2e_phase(dev, tmp):
                                    "gather_block_scores": gather.launches - before[1]}}
         check(all(v > 0 for v in runs[prec]["launches"].values()),
               f"{prec}: a kernel was not launched on the main path: {runs[prec]['launches']}")
-    launches = {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches}
-    return runs, launches
+    return runs, launch_counts()
 
 
 def main():
@@ -407,8 +558,6 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         sys.exit(2)
-    import merizo_search_tpu_torch  # noqa: F401  (fails fast outside a checkout)
-
     faulthandler.enable()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,9 +565,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         with Phase("device") as ph:
-            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                  "--format=csv,noheader"], capture_output=True,
-                                 text=True, timeout=30, check=True).stdout.strip()
+            smi = device_line(dev)
             kind = torch.cuda.get_device_name(0)
             print(smi, flush=True)
             ph.notes.append(f"torch: {kind}, {torch.__version__}, CUDA {torch.version.cuda}")
@@ -435,9 +582,10 @@ def main():
             ph.notes.append(f"g++ {time.perf_counter() - t:.2f} s")
 
         gen = torch.Generator(device=dev).manual_seed(0)
-        flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+        flush = _bench_util.flush_buffer(dev)
         with Phase("kernels") as ph:
-            bm_modes, g_modes = kernels_phase(dev, gen, flush)
+            big = big_dbs(gen, dev)
+            bm_modes, g_modes = kernels_phase(dev, gen, flush, big)
             ph.notes.append(f"{len(bm_modes)} phase-A and {len(g_modes)} phase-C configurations")
 
         with Phase("fused") as ph:
@@ -450,10 +598,23 @@ def main():
                 ph.notes.append(f"{prec}: " + ", ".join(f"{k} {v:.3f} s"
                                                          for k, v in r["phase_s"].items()))
 
+        with Phase("pipelined") as ph:
+            pipe_tool, pipe_counts, bmg_modes = pipelined_phase(dev, gen, flush, big)
+            for r in pipe_tool["runs"]:
+                ph.notes.append(f"{r['dtype']} Q={r['q']}: exact, sequential "
+                                f"{r['seq_ms']:.3f} / pipelined {r['pipe_ms']:.3f} ms a batch")
+
+        with Phase("probes") as ph:
+            probe_tools, probe_counts, mini_modes, stream_modes = probes_phase(dev, gen, flush,
+                                                                               big)
+            best = probe_tools["perf_hbm"]["best"]
+            ph.notes.append(f"best read {best['gbps']:.1f} GB/s ({best['probe']})")
+
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
-            the e2e bf16 run gives it (Q = 32, N = 500,096, mask on); every
-            measured configuration is under `modes`."""
+            its path gives it (search kernels: the e2e bf16 run's Q = 32,
+            N = 500,096, mask on; the others: the 2^24-row shape of their
+            tools); every measured configuration is under `modes`."""
             m = next(x for x in modes if all(x.get(k) == v for k, v in main.items()))
             errs = [x["max_abs_err"] for x in modes if x["max_abs_err"] is not None]
             return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -472,8 +633,26 @@ def main():
                   {"dtype": "bf16", "q": 32, "n": -(-N_MAIN // 128) * 128},
                   launches["gather_block_scores"],
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)"),
+            entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
+                  "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
+                  {"dtype": "bf16", "q": 256, "n": N_BIG},
+                  pipe_counts["blockmax_scan_gather"],
+                  yardstick="sequential_kernels_ms: phase A then phase C (int8: with the "
+                            "carried block scales), two launches, same inputs; "
+                            "fused_phase_a_only_ms: this kernel with an empty previous selection"),
+            entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu",
+                  "tools/perf_floor2.py:32", mini_modes,
+                  {"dtype": "bf16", "mode": "reduce"}, probe_counts["mini_scan"],
+                  also_replaces="tools/perf_int8_floor.py:37 (tile 32768, int8)"),
+            entry("stream_probe", "merizo_search_tpu_torch/csrc/probes.cu",
+                  "tools/perf_hbm.py:37", stream_modes, {"d": 128, "tile": 65536},
+                  probe_counts["stream_probe"],
+                  yardstick="torch_sum_ms: x.sum(dtype=torch.int32) over the same bytes"),
         ]
         print(json.dumps({"e2e": runs, "fused_recall_at_100": rec,
+                          "pipelined": pipe_tool, "probe_tools": probe_tools,
+                          "path_launches": {"search": launches, "pipelined": pipe_counts,
+                                            "probes": probe_counts},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

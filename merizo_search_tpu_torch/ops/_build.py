@@ -89,6 +89,14 @@ def library() -> ctypes.CDLL:
         lib.mst_gather_block_scores.restype = ci
         lib.mst_gather_block_scores.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
                                                 vp, ci, ci, ll, vp]
+        lib.mst_bm_gather.restype = ci
+        lib.mst_bm_gather.argtypes = [ci, vp, vp, vp, vp, ci, ci, ll, ci, vp, vp,
+                                      vp, vp, ci, ci, vp]
+        lib.mst_mini_scan.restype = ci
+        lib.mst_mini_scan.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                      vp]
+        lib.mst_stream_probe.restype = ci
+        lib.mst_stream_probe.argtypes = [vp, vp, vp, ci, ll, ci, vp]
         _lib = lib
         return _lib
 

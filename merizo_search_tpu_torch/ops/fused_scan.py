@@ -51,8 +51,6 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
     Returns (scores [Q, k] float32, indices [Q, k] int64), descending;
     masked or padded entries carry -inf / -1.
     """
-    qn = q.shape[0]
-    nb = db.shape[0] // BLOCK
     tl = qcap = None
     if use_len:
         # tl = tlen*mincov and qcap = qlen, so the kernels' tl <= qcap is the
@@ -64,14 +62,25 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
 
     bm = blockmax_scan(q, db, n_valid, tl, qcap, scales)
     bidx = select_blocks(bm, n_valid, k)
-    scale_sel = None
-    if scales is not None:
-        block_scale = scales.view(nb, BLOCK)[:, 0]
-        scale_sel = torch.where(bidx >= 0, block_scale[bidx.clamp(min=0).long()],
-                                1.0).contiguous()
+    scale_sel = None if scales is None else selected_scales(scales, bidx)
     scores = gather_block_scores(q, db, bidx, n_valid, tl, qcap,
                                  scale_sel=scale_sel)
+    return final_topk(scores, bidx, k)
 
+
+def selected_scales(scales, bidx):
+    """scale_sel [Q, KB] float32: the block scale of each selected block
+    (from the block-uniform per-row `scales`), 1.0 in padding columns."""
+    block_scale = scales.view(-1, BLOCK)[:, 0]
+    return torch.where(bidx >= 0, block_scale[bidx.clamp(min=0).long()],
+                       1.0).contiguous()
+
+
+def final_topk(scores, bidx, k: int):
+    """The top-k rows of phase C's scores [Q, KB*128] over the blocks bidx
+    [Q, KB]: (v [Q, k] float32, idx [Q, k] int64), -inf / -1 where fewer
+    than k rows are found (NEG_CAP sentinels do not count)."""
+    qn = scores.shape[0]
     kk = min(k, scores.shape[1])
     v, sel = torch.topk(scores, kk, dim=1)
     idx = torch.gather(bidx.long(), 1, sel // BLOCK) * BLOCK + sel % BLOCK

@@ -7,15 +7,17 @@ package, so it also runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: bf16 scores 1e-5 absolute (unit-norm rows; the kernel sums 128
-float32 products in order, the plain version in float64); int8 exact.
+float32 products in order, the plain version in float64); int8 exact; the
+pipelined scan equals the sequential one on the card exactly (the same
+device arithmetic); stream_probe exact (sums of small integers, XOR).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from merizo_search_tpu_torch.ops import blockmax, gather, topk
-from merizo_search_tpu_torch.ops.fused_scan import fused_topk, select_blocks
+from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes, topk
+from merizo_search_tpu_torch.ops.fused_scan import fused_topk, select_blocks, selected_scales
 
 NEG_CAP = -3.4e38
 
@@ -121,3 +123,92 @@ def test_kernel_rejects_cpu_mixed_and_wrong_dtype(cuda, data):
         blockmax.blockmax_scan(q.to(cuda), db, data["n"])
     with pytest.raises(TypeError):
         blockmax.blockmax_scan(q.float().to(cuda), db.float().to(cuda), data["n"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_scale_sel"])
+def test_bm_gather_kernel_matches_plain(cuda, data, mode):
+    dtype = mode[:4]
+    q, db, sc = data[dtype]
+    bidx = select_blocks(blockmax.blockmax_scan(q, db, data["n"], scales=sc), data["n"], 9)
+    bidx[::4, 2] = -1
+    pv_q = q.flip(0).contiguous()
+    ss = selected_scales(sc, bidx) if mode == "int8_scale_sel" else None
+    n0 = pipelined.launches
+    got = pipelined.blockmax_scan_gather(*_on(cuda, q, db), data["n"],
+                                         *_on(cuda, pv_q, bidx, sc), pv_scale_sel=(
+                                             None if ss is None else ss.to(cuda)))
+    torch.cuda.synchronize()
+    assert pipelined.launches == n0 + 1
+    want = pipelined.blockmax_scan_gather(q, db, data["n"], pv_q, bidx, sc, ss)
+    for g, w in zip(got, want):
+        _compare(g, w, dtype == "int8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_pipelined_equals_sequential_on_card(cuda, data, dtype):
+    q, db, sc = _on(cuda, *data[dtype])
+    batches = [q[:32].contiguous(), q[32:64].contiguous(), q[6:38].contiguous()]
+    carry, outs = None, []
+    for b in batches + batches[-1:]:
+        res, carry = pipelined.fused_topk_step(b, db, data["n"], 50, carry, scales=sc)
+        outs.append(res)
+    assert (outs[0][0] == float("-inf")).all() and (outs[0][1] == -1).all()
+    for b, (v, i) in zip(batches, outs[1:]):
+        sv, si = fused_topk(b, db, data["n"], 50, scales=sc)
+        assert torch.equal(v, sv) and torch.equal(i, si)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["none", "reduce"])
+@pytest.mark.parametrize("tile, nslab", [(1024, 2), (32768, 4)])
+def test_mini_scan_kernel_matches_plain(cuda, data, dtype, mode, tile, nslab):
+    q, db, _ = data[dtype]
+    if tile > db.shape[0]:       # the fixed tile: two copies of the DB make a step
+        db = torch.cat([db, db])[:tile]
+    n0 = probes.launches["mini_scan"]
+    got, sink = probes.mini_scan(*_on(cuda, q, db), tile, nslab, mode)
+    torch.cuda.synchronize()
+    assert probes.launches["mini_scan"] == n0 + 1
+    want, wsink = probes.mini_scan(q, db, tile, nslab, mode)
+    assert got.shape == want.shape
+    got = got.cpu()
+    if dtype == "int8":
+        assert torch.equal(got, want) and sink.item() == wsink.item()
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+        assert abs(sink.item() - wsink.item()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("tile", [8, 1000, 2048])
+def test_stream_probe_kernel_matches_plain(cuda, data, wide, tile):
+    x = data["int8"][1]
+    if wide:
+        x = x.view(-1, 1024)
+    n0 = probes.launches["stream_probe"]
+    o, sink = probes.stream_probe(x.to(cuda), 2.0, tile)
+    torch.cuda.synchronize()
+    assert probes.launches["stream_probe"] == n0 + 1
+    wo, wsink = probes.stream_probe(x, 2.0, tile)
+    assert torch.equal(o.cpu(), wo) and sink.item() == wsink.item()
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_cpu_mixed_and_wrong_dtype(cuda, data):
+    q, db, _ = data["bf16"]
+    bidx = torch.zeros((q.shape[0], 3), dtype=torch.int32)
+    with pytest.raises(ValueError):         # previous batch left on the CPU
+        pipelined.blockmax_scan_gather(q.to(cuda), db.to(cuda), data["n"], q, bidx.to(cuda))
+    with pytest.raises(TypeError):
+        pipelined.blockmax_scan_gather(*_on(cuda, q.float(), db.float()), data["n"],
+                                       *_on(cuda, q.float(), bidx))
+    with pytest.raises(ValueError):
+        probes.mini_scan(q.to(cuda), db, 1024)
+    with pytest.raises(TypeError):
+        probes.mini_scan(*_on(cuda, q.float(), db.float()), 1024)
+    with pytest.raises(TypeError):
+        probes.stream_probe(db.to(cuda), 0.0, 1024)
