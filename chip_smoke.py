@@ -25,12 +25,21 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             rate, the dot alone and the dot with the reduce; then mini_scan
             (both modes, both dtypes) and stream_probe against their plain
             versions, sinks included, timed there.
+8. variants phase A in slabs and the phase-C gather variants through their
+            tools (tools/perf_slab_interleave at 2^24 rows, Q = 256, tiles
+            8192/16384/32768, nslab 1/2/4/8; tools/perf_gather_int8 at 2^24 rows,
+            Q = 256, KB = 102, G = 34, every mode): slab_scan, with its SBM
+            output and without, equal to blockmax_scan with the length
+            channel off for every nslab; then
+            slab_scan and every gather mode against their plain versions,
+            sinks included, at N = 500,000 and at 2^24 rows.
 
-Each path (e2e, pipelined, probes) starts with every kernel's launch count
-at 0 and fails unless each of its kernels was launched. The 2^24-row rows of
-phases 3, 6 and 7 share one bf16 and one int8 DB a run (the tools' synthetic
-DB); the kernel table takes the probes' times and bounds from their tools'
-rows and times only the plain versions and library calls itself.
+Each path (e2e, pipelined, probes, variants) starts with every kernel's
+launch count at 0 and fails unless each of its kernels was launched. The
+2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
+tools' synthetic DB); the kernel table takes the times and bounds of the
+probes and variants from their tools' rows and times only the plain
+versions and library calls itself.
 
 Prints one line per phase with its seconds, the nvidia-smi line, a JSON line
 {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
@@ -59,7 +68,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_BUDGET_S = 300       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
-                  "pipelined": 20, "probes": 25}
+                  "pipelined": 20, "probes": 25, "variants": 30}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -209,6 +218,9 @@ def kernels_phase(dev, gen, flush, big):
                         gerr = max_err(g, gather.gather_plain(*gargs, **kw), dtype == "int8")
                         gms = time_ms(lambda: gather.gather_block_scores(*gargs, **kw),
                                       flush=flush)
+                        # the sub-0.1 ms readings' spread within a run (PERF.md rows 2-3)
+                        reps = [time_ms(lambda: gather.gather_block_scores(*gargs, **kw),
+                                        flush=flush) for _ in range(4 if nq == 32 else 0)]
                         gplain = time_ms(lambda: gather.gather_plain(*gargs, **kw), 3, flush)
                         kbv = int((bidx >= 0).sum())
                         nblk = int(torch.unique(bidx[bidx >= 0]).numel())
@@ -220,7 +232,8 @@ def kernels_phase(dev, gen, flush, big):
                         g_modes.append({"dtype": dtype, "mode": mode, "n": npad, "q": nq,
                                         "kb": bidx.shape[1], "max_abs_err": gerr,
                                         "ms": gms, "plain_ms": gplain, "bound_ms": gb_ms,
-                                        "bound_by": gb_by, "library_ms": None})
+                                        "bound_by": gb_by, "library_ms": None,
+                                        "ms_repeats": reps})
     del p
     torch.cuda.empty_cache()
     # the 16M-row scan shape, Q = 256: kernel times and bounds only
@@ -294,18 +307,23 @@ def fused_phase(dev, gen):
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0: a path starts here."""
-    from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes
+    from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
+                                             probes, slab_interleave)
 
-    blockmax.launches = gather.launches = pipelined.launches = 0
-    for name in probes.launches:
-        probes.launches[name] = 0
+    blockmax.launches = gather.launches = pipelined.launches = slab_interleave.launches = 0
+    for counts in (probes.launches, gather_variants.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts():
-    from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes
+    from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
+                                             probes, slab_interleave)
 
     return {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches,
-            "blockmax_scan_gather": pipelined.launches, **probes.launches}
+            "blockmax_scan_gather": pipelined.launches, **probes.launches,
+            "slab_scan": slab_interleave.launches,
+            **{f"gather_variant.{m}": n for m, n in gather_variants.launches.items()}}
 
 
 def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100):
@@ -440,6 +458,121 @@ def probes_phase(dev, gen, flush, big):
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                        "torch_sum_ms": tool_row(hbm, tile=0)["ms"]})
     return tools, counts, mini, stream
+
+
+def pad_rows(db, sc, rows):
+    """db (and its scales) padded with zero rows (scale 1) to `rows` rows."""
+    pad = rows - db.shape[0]
+    return (torch.cat([db, db.new_zeros((pad, 128))]),
+            None if sc is None else torch.cat([sc, sc.new_ones(pad)]))
+
+
+def variants_phase(dev, gen, flush, big):
+    """Phase A in slabs and the gather variants through their tools on the
+    run's 2^24-row DBs; then each kernel against its plain version at the
+    500k problem (unit rows; slab_scan on the DB padded to 16 tiles of
+    32768 rows, n_valid 500,000 cutting a block; bidx random with negative
+    and repeated ids) and at 2^24 rows (the tools' queries and bidx). Kernel
+    times and bounds are the tools' rows; the plain versions are timed
+    here at 2^24 rows."""
+    from merizo_search_tpu_torch.ops import blockmax, gather_variants, slab_interleave
+    from merizo_search_tpu_torch.tools import perf_gather_int8, perf_slab_interleave
+
+    reset_counts()                                   # the variants path starts here
+    rows = ["--log2-rows", str(N_BIG.bit_length() - 1)]
+    tools = {"perf_slab_interleave": perf_slab_interleave.main(
+                 ["--tiles", "8192,16384,32768", "--nslabs", "1,2,4,8", "--no-sbm",
+                  "--iters", "3", *rows], dbs=big),
+             "perf_gather_int8": perf_gather_int8.main(["--iters", "10", *rows], dbs=big)}
+    counts = launch_counts()
+    for name in ["slab_scan"] + [f"gather_variant.{m}" for m in gather_variants.MODES]:
+        check(counts[name] > 0, f"the variants path never launched {name}")
+    srows, grows = tools["perf_slab_interleave"]["rows"], tools["perf_gather_int8"]["rows"]
+    for r in srows:
+        if "nslab" in r:
+            check(r["dbm"] == 0.0 and r["dsbm"] == 0.0,
+                  f"slab_scan differs from blockmax_scan at 2^24 rows: {r}")
+
+    def slab_check(q, db, sc, n, rel):
+        """Every nslab against the plain version and, bit for bit, against
+        blockmax_scan with the channel off; returns the max error."""
+        want = slab_interleave.slab_scan_plain(q, db, n, slab_interleave.TILE, 1, sc)
+        bm0 = blockmax.blockmax_scan(q, db, n, scales=sc)
+        sb0 = bm0.view(q.shape[0], -1, slab_interleave.TILE // 128).amax(dim=2)
+        err = 0.0
+        for ns in slab_interleave.NSLABS:
+            bm, sbm = slab_interleave.slab_scan(q, db, n, slab_interleave.TILE, ns, sc)
+            torch.cuda.synchronize()
+            bm_only, _ = slab_interleave.slab_scan(q, db, n, slab_interleave.TILE, ns, sc,
+                                                   sbm=False)
+            torch.cuda.synchronize()
+            check(torch.equal(bm, bm0) and torch.equal(sbm, sb0) and torch.equal(bm_only, bm0),
+                  f"slab_scan nslab={ns} is not blockmax_scan's BM bit for bit")
+            for g, w in ((bm, want[0]), (sbm, want[1])):
+                err = max(err, max_err(g, w, q.dtype == torch.int8, rel))
+        return err
+
+    def gather_check(q, db, bidx, rel):
+        """Every mode against the plain version, sinks exact; returns the
+        max error of each mode."""
+        errs = {}
+        for kind in gather_variants.MODES:
+            if kind == "int32view" and db.dtype != torch.int8:
+                continue
+            got, sink = gather_variants.gather_variant(q, db, bidx, kind)
+            torch.cuda.synchronize()
+            want, wsink = gather_variants.gather_variant_plain(q, db, bidx, kind)
+            exact = db.dtype == torch.int8 or kind != "full"
+            errs[kind] = max_err(got, want, exact, rel)
+            check((sink is None and wsink is None) or sink.item() == wsink.item(),
+                  f"gather_variant {kind}: sink differs from the plain version's")
+        return errs
+
+    p = make_problem(N_MAIN, 256, gen, dev)
+    rng = np.random.default_rng(1)
+    small = {}
+    for dtype in ("bf16", "int8"):
+        q, db, sc = p[dtype]
+        dbp, scp = pad_rows(db, sc, 16 * slab_interleave.TILE)
+        slab_err = slab_check(q, dbp, scp, N_MAIN, False)
+        bidx = torch.from_numpy(rng.integers(0, db.shape[0] // 128, (256, 102))
+                                .astype(np.int32)).to(dev)
+        bidx[::7, 5] = -1
+        bidx[::11, 1] = bidx[::11, 0]
+        small[dtype] = (slab_err, gather_check(q, db, bidx, False))
+    del p
+    torch.cuda.empty_cache()
+    slab, gvar = [], []
+    for dtype in ("bf16", "int8"):
+        db, sc = big[dtype]
+        q = perf_slab_interleave.make_queries(256, dtype, 0, gen, dev)
+        err = max(small[dtype][0], slab_check(q, db, sc, N_BIG, True))
+        args = (q, db, N_BIG, slab_interleave.TILE, 2, sc)
+        plain_ms = time_ms(lambda: slab_interleave.slab_scan_plain(*args), 1, flush)
+        lib = tool_row(srows, dtype=dtype, what="library " + (
+            "torch._int_mm" if dtype == "int8" else "torch.matmul"))
+        for r in srows:
+            if r["dtype"] == dtype and "nslab" in r:
+                slab.append({"dtype": dtype, "n": N_BIG, "q": 256, "tile": r["tile"],
+                             "nslab": r["nslab"], "sbm": r.get("sbm", True),
+                             "max_abs_err": err, "ms": r["ms"],
+                             "ms_from": "perf_slab_interleave", "plain_ms": plain_ms,
+                             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                             "library_ms": lib["ms"], "baseline_blockmax_ms": tool_row(
+                                 srows, dtype=dtype, what="baseline blockmax_scan")["ms"]})
+        qg = perf_gather_int8.make_queries(256, dtype, 0, gen, dev)
+        bidx = perf_gather_int8.make_bidx(256, 102, N_BIG // 128, 0, dev)
+        errs = gather_check(qg, db, bidx, True)
+        for kind, e in errs.items():
+            r = tool_row(grows, dtype=dtype, mode=kind)
+            gvar.append({"dtype": dtype, "mode": kind, "n": N_BIG, "q": 256, "kb": 102,
+                         "g": 34, "max_abs_err": max(e, small[dtype][1][kind]),
+                         "ms": r["ms"], "ms_from": "perf_gather_int8",
+                         "plain_ms": time_ms(lambda k=kind: gather_variants.gather_variant_plain(
+                             qg, db, bidx, k), 1, flush),
+                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                         "library_ms": None, "phase_c_ms": r["phase_c_ms"]})
+    return tools, counts, slab, gvar
 
 
 def walk(rng, n):
@@ -610,6 +743,13 @@ def main():
             best = probe_tools["perf_hbm"]["best"]
             ph.notes.append(f"best read {best['gbps']:.1f} GB/s ({best['probe']})")
 
+        with Phase("variants") as ph:
+            var_tools, var_counts, slab_modes, gvar_modes = variants_phase(dev, gen, flush, big)
+            for r in slab_modes:
+                if r["nslab"] == 2 and r["tile"] == 32768 and r["sbm"]:
+                    ph.notes.append(f"{r['dtype']} slab x2 {r['ms']:.3f} ms (blockmax_scan "
+                                    f"{r['baseline_blockmax_ms']:.3f})")
+
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
             its path gives it (search kernels: the e2e bf16 run's Q = 32,
@@ -648,11 +788,34 @@ def main():
                   "tools/perf_hbm.py:37", stream_modes, {"d": 128, "tile": 65536},
                   probe_counts["stream_probe"],
                   yardstick="torch_sum_ms: x.sum(dtype=torch.int32) over the same bytes"),
+            entry("slab_scan", "merizo_search_tpu_torch/csrc/slab_interleave.cu",
+                  "tools/perf_slab_interleave.py:38", slab_modes,
+                  {"dtype": "bf16", "tile": 32768, "nslab": 2, "sbm": True},
+                  var_counts["slab_scan"],
+                  yardstick="baseline_blockmax_ms: blockmax_scan with the length channel "
+                            "off, same inputs (the JAX tool's baseline)"),
+            entry("gather_variant", "merizo_search_tpu_torch/csrc/gather_variants.cu",
+                  "tools/perf_gather_int8.py:80",
+                  [m for m in gvar_modes if m["mode"] != "int32view"],
+                  {"dtype": "int8", "mode": "full"},
+                  sum(var_counts[f"gather_variant.{m}"]
+                      for m in ("dma_only", "concat_only", "full")),
+                  yardstick="phase_c_ms: gather_block_scores (no scales) on the same blocks; "
+                            "no single PyTorch call computes the gather"),
+            entry("gather_variant (int32view)",
+                  "merizo_search_tpu_torch/csrc/gather_variants.cu",
+                  "tools/perf_gather_int8.py:159",
+                  [m for m in gvar_modes if m["mode"] == "int32view"],
+                  {"dtype": "int8", "mode": "int32view"},
+                  var_counts["gather_variant.int32view"],
+                  yardstick="phase_c_ms: gather_block_scores (no scales) on the same blocks; "
+                            "no single PyTorch call computes the gather"),
         ]
         print(json.dumps({"e2e": runs, "fused_recall_at_100": rec,
                           "pipelined": pipe_tool, "probe_tools": probe_tools,
+                          "variant_tools": var_tools,
                           "path_launches": {"search": launches, "pipelined": pipe_counts,
-                                            "probes": probe_counts},
+                                            "probes": probe_counts, "variants": var_counts},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

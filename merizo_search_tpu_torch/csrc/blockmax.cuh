@@ -46,7 +46,13 @@ size_t blockmax_smem() {
 // One CTA's work: query tile `qtile` against DB blocks [chunk *
 // blocks_per_cta, +blocks_per_cta). Needs THREADS threads and
 // blockmax_smem<T>() bytes at `smem`. blockmax_kernel runs it with the CTA's
-// grid coordinates; bm_gather.cu runs it from the phase-A part of its grid.
+// grid coordinates; bm_gather.cu runs it from the phase-A part of its grid;
+// slab_interleave.cu also passes `part` [nq, nchunks], which gets the max of
+// the BM values the CTA wrote for each query (the chunk's superblock max):
+// after its walk each warp reads back the BM it wrote. Updating a running
+// max in the per-block epilogue instead cost 16-18% of phase A on the H100
+// (PERF.md). Callers pass tl/qcap/part as literal nullptr to compile their
+// code out.
 template <class T>
 __device__ __forceinline__ void
 blockmax_body(unsigned char* smem, const typename T::In* __restrict__ q,
@@ -54,7 +60,7 @@ blockmax_body(unsigned char* smem, const typename T::In* __restrict__ q,
               const float* __restrict__ tl, const float* __restrict__ qcap,
               const float* __restrict__ scales, float* __restrict__ bm,
               int nq, int nb, long long n_valid, int blocks_per_cta, int qtile,
-              int chunk) {
+              int chunk, float* __restrict__ part = nullptr) {
   using Word = typename T::Word;
   using Acc = typename T::Acc;
   Word* qs = reinterpret_cast<Word*>(smem);          // [QT][PITCH]
@@ -124,6 +130,19 @@ blockmax_body(unsigned char* smem, const typename T::In* __restrict__ q,
       }
       if (lane == 0 && q0 + qi < nq)
         bm[(long long)(q0 + qi) * nb + b] = blk_valid ? fmaxf(m, NEG_CAP) : NEG_CAP;
+    }
+  }
+  if (part != nullptr) {
+    __syncwarp();  // lane 0's BM stores are visible to the warp's lanes
+    const int nchunks = (nb + blocks_per_cta - 1) / blocks_per_cta;
+    for (int c = 0; c < QPW; ++c) {
+      const int qi = q0 + warp * QPW + c;
+      if (qi >= nq) break;  // the same for every lane of the warp
+      float m = -INFINITY;
+      for (int b = b_begin + lane; b < b_end; b += 32) m = fmaxf(m, bm[(long long)qi * nb + b]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) part[(long long)qi * nchunks + chunk] = m;
     }
   }
 }

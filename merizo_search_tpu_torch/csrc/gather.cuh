@@ -40,19 +40,19 @@ size_t gather_smem() {
   return (size_t)(1 + BLOCK) * T::PITCH * sizeof(typename T::Word);
 }
 
-// One CTA's work: query `qi` against its selected columns [group * GROUP,
-// +GROUP). Needs at least GTHREADS threads (threads past the 128th help
-// stage rows and score none) and gather_smem<T>() bytes at `smem`.
-// gather_kernel runs it with the CTA's grid coordinates; bm_gather.cu runs
-// it from the phase-C part of its grid.
+// Query `qi` against its selected columns [c_begin, c_end). Needs at least
+// GTHREADS threads (threads past the 128th help stage rows and score none)
+// and gather_smem<T>() bytes at `smem`. With pad_neg, bidx -1 is padding
+// (NEG_CAP); without, a negative index scores block 0, as the TPU gather
+// variants clamp it (gather_variants.cu).
 template <class T>
 __device__ __forceinline__ void
-gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
+gather_cols(unsigned char* smem, const typename T::In* __restrict__ q,
             const typename T::In* __restrict__ db,
             const float* __restrict__ tl, const float* __restrict__ qcap,
             const int* __restrict__ bidx, const float* __restrict__ scale_sel,
             const float* __restrict__ scales, float* __restrict__ out, int kb,
-            long long n_valid, int qi, int group) {
+            long long n_valid, int qi, int c_begin, int c_end, bool pad_neg) {
   using Word = typename T::Word;
   Word* qs = reinterpret_cast<Word*>(smem);  // [1][PITCH]
   Word* xs = qs + T::PITCH;                  // [BLOCK][PITCH]
@@ -63,8 +63,7 @@ gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
   const Word* const xr[1] = {xs + r * T::PITCH};  // read only if r < BLOCK
   const Word* const qr[1] = {qs};
 
-  const int c_end = min(kb, (group + 1) * GROUP);
-  for (int c = group * GROUP; c < c_end; ++c) {
+  for (int c = c_begin; c < c_end; ++c) {
     const long long sel = (long long)qi * kb + c;
     const int b = bidx[sel];
     const long long base = (long long)max(b, 0) * BLOCK;
@@ -77,12 +76,27 @@ gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
     dot_tile<T, 1, 1>(acc, xr, qr);
     float s = (float)acc[0][0];
     const long long row = base + r;
-    bool keep = b >= 0 && row < n_valid;
+    bool keep = (b >= 0 || !pad_neg) && row < n_valid;
     if (tl != nullptr) keep = keep && tl[row] <= qc;
     if (scale_sel != nullptr) s *= scale_sel[sel];
     if (scales != nullptr) s *= scales[row];
     out[sel * BLOCK + r] = (keep && s == s) ? s : NEG_CAP;
   }
+}
+
+// One CTA's work: query `qi` against its selected columns [group * GROUP,
+// +GROUP). gather_kernel runs it with the CTA's grid coordinates;
+// bm_gather.cu runs it from the phase-C part of its grid.
+template <class T>
+__device__ __forceinline__ void
+gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
+            const typename T::In* __restrict__ db,
+            const float* __restrict__ tl, const float* __restrict__ qcap,
+            const int* __restrict__ bidx, const float* __restrict__ scale_sel,
+            const float* __restrict__ scales, float* __restrict__ out, int kb,
+            long long n_valid, int qi, int group) {
+  gather_cols<T>(smem, q, db, tl, qcap, bidx, scale_sel, scales, out, kb, n_valid,
+                 qi, group * GROUP, min(kb, (group + 1) * GROUP), true);
 }
 
 }  // namespace mst

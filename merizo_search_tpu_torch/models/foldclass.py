@@ -28,6 +28,7 @@ its embeddings match the JAX package's to 1e-4.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -40,6 +41,8 @@ torch.backends.cudnn.allow_tf32 = False
 EMBED_DIM = 128
 PE_MAX_LEN = 3000
 N_LAYERS = 2
+DEFAULT_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "foldclass_default.npz")
 
 
 def sinusoidal_pe(max_len: int = PE_MAX_LEN, d_model: int = EMBED_DIM) -> np.ndarray:
@@ -133,22 +136,16 @@ class FoldClassNet(nn.Module):
         return torch.sum(feats * mask[..., None], dim=1) / torch.clamp(msum, min=1.0)
 
 
-def init_state_dict(seed: int = 0) -> dict:
-    """Seeded random weights with the reference's init distribution:
-    normal(std=1e-3) on every Linear weight and torch's default uniform bias
-    (my_egnn_nocoords.py:36-42). The numbers differ from the JAX package's
-    PRNGKey(0) init; parity tests give both packages one state dict."""
-    g = torch.Generator().manual_seed(seed)
-    model = FoldClassNet()
-    sd = {}
-    for name, p in model.state_dict().items():
-        if name.endswith(".weight"):
-            sd[name] = torch.randn(p.shape, generator=g) * 1e-3
-        elif name.endswith(".bias"):
-            bound = 1.0 / math.sqrt(model.get_submodule(name[:-5]).in_features)
-            sd[name] = (torch.rand(p.shape, generator=g) * 2 - 1) * bound
-        else:
-            sd[name] = p
+def default_state_dict() -> dict:
+    """The default weights, used when no checkpoint is given: the JAX
+    package's default (`init_params(PRNGKey(0))`, converted by
+    `params_from_jax`), stored in DEFAULT_WEIGHTS as float32 Linear weights
+    and biases; `posenc_as.pe` is the fixed sinusoidal table. So a DB built
+    by either package without weights is searched by the other in the same
+    embedding space."""
+    with np.load(DEFAULT_WEIGHTS) as z:
+        sd = {k: torch.from_numpy(z[k]) for k in z.files}
+    sd["posenc_as.pe"] = torch.from_numpy(sinusoidal_pe())[None]
     return sd
 
 

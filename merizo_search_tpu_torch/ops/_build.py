@@ -97,6 +97,10 @@ def library() -> ctypes.CDLL:
                                       vp]
         lib.mst_stream_probe.restype = ci
         lib.mst_stream_probe.argtypes = [vp, vp, vp, ci, ll, ci, vp]
+        lib.mst_slab_scan.restype = ci
+        lib.mst_slab_scan.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci, vp]
+        lib.mst_gather_variant.restype = ci
+        lib.mst_gather_variant.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         _lib = lib
         return _lib
 

@@ -23,16 +23,16 @@ MAX_RES = 2000  # reference truncation at db build (makedb.py:68-69)
 def load_foldclass_params(weights_path: str | None = None,
                           device: str | torch.device = "cuda") -> fc.FoldClassNet:
     """The Foldclass network on `device`, in eval mode: reference weights
-    from a `.pt` state dict, or seeded random weights when no checkpoint is
-    given (the reference's trained FINAL_foldclass_model.pt is not in this
-    mirror)."""
+    from a `.pt` state dict, or, when no checkpoint is given, the JAX
+    package's default random weights (`fc.default_state_dict`; the
+    reference's trained FINAL_foldclass_model.pt is not in this mirror)."""
     dev = resolve_device(device)
     if weights_path:
         sd = torch.load(weights_path, map_location="cpu")
         if hasattr(sd, "state_dict"):
             sd = sd.state_dict()
     else:
-        sd = fc.init_state_dict(0)
+        sd = fc.default_state_dict()
     model = fc.FoldClassNet()
     model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
     return model.to(dev).eval()

@@ -19,6 +19,7 @@ from ..device import resolve_device
 
 HBM_BPS = 3.35e12                                  # H100 SXM device memory (bytes/s)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}       # dense tensor-core peaks (op/s)
+HOLD_CYCLES = 2_000_000          # time_ms's spin before each timed call: ~1 ms at 1.98 GHz
 
 
 def bound(nbytes, ops, dtype):
@@ -32,7 +33,11 @@ def time_ms(fn, dev, iters=10, flush=None):
     """Mean time of fn() in ms, after two warm-up calls. CUDA: events
     around each call; `flush` (a buffer larger than the 50 MB L2) is
     rewritten before each call, outside the timed window, so the call finds
-    the L2 cold. CPU: the host clock around each call."""
+    the L2 cold. Then a spin kernel of HOLD_CYCLES clocks holds the stream
+    while the host enqueues the start event, the call and the end event, so
+    the pair times the call's device work and not the host's enqueue of it
+    (a call whose host work outlasts the spin, or that synchronises, still
+    counts its host time). CPU: the host clock around each call."""
     for _ in range(2):
         fn()
     if dev.type == "cpu":
@@ -47,6 +52,7 @@ def time_ms(fn, dev, iters=10, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()

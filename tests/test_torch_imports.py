@@ -35,7 +35,9 @@ def test_port_has_the_slice_modules():
               "ops.fused_scan", "ops._build", "align.native", "db.codecs",
               "io.pdb", "io.mmcif", "io.results", "ops.pipelined", "ops.probes",
               "tools._bench_util", "tools.perf_pipelined", "tools.perf_hbm",
-              "tools.perf_int8_floor", "tools.perf_floor2"):
+              "tools.perf_int8_floor", "tools.perf_floor2", "ops.slab_interleave",
+              "ops.gather_variants", "tools.perf_slab_interleave",
+              "tools.perf_gather_int8"):
         assert f"merizo_search_tpu_torch.{m}" in mods
 
 

@@ -9,14 +9,18 @@ package, so it also runs on a machine without them:
 Tolerances: bf16 scores 1e-5 absolute (unit-norm rows; the kernel sums 128
 float32 products in order, the plain version in float64); int8 exact; the
 pipelined scan equals the sequential one on the card exactly (the same
-device arithmetic); stream_probe exact (sums of small integers, XOR).
+device arithmetic); stream_probe exact (sums of small integers, XOR);
+slab_scan equals blockmax_scan with the length channel off exactly (the
+same dot routine); the gather variants' sums and sinks exact (f32 sums in
+one order, XOR), their `full` scores as phase C's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from merizo_search_tpu_torch.ops import blockmax, gather, pipelined, probes, topk
+from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined, probes,
+                                         slab_interleave, topk)
 from merizo_search_tpu_torch.ops.fused_scan import fused_topk, select_blocks, selected_scales
 
 NEG_CAP = -3.4e38
@@ -212,3 +216,75 @@ def test_new_kernels_reject_cpu_mixed_and_wrong_dtype(cuda, data):
         probes.mini_scan(*_on(cuda, q.float(), db.float()), 1024)
     with pytest.raises(TypeError):
         probes.stream_probe(db.to(cuda), 0.0, 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("nslab", [2, 8])
+def test_slab_scan_kernel_matches_plain_and_blockmax(cuda, data, dtype, nslab):
+    """The DB padded to 10 tiles of 2048 rows; n_valid = 20000 cuts block
+    156 and floors the blocks after it. The BM-only build gives the same BM."""
+    q, db, sc = data[dtype]
+    pad = 10 * 2048 - db.shape[0]
+    db = torch.cat([db, db.new_zeros((pad, 128))])
+    sc = None if sc is None else torch.cat([sc, sc.new_ones(pad)])
+    n0 = slab_interleave.launches
+    bm, sbm = slab_interleave.slab_scan(*_on(cuda, q, db), data["n"], 2048, nslab,
+                                        *_on(cuda, sc))
+    torch.cuda.synchronize()
+    assert slab_interleave.launches == n0 + 1
+    want_bm, want_sbm = slab_interleave.slab_scan(q, db, data["n"], 2048, nslab, sc)
+    _compare(bm, want_bm, dtype == "int8")
+    _compare(sbm, want_sbm, dtype == "int8")
+    assert (bm.cpu()[:, 157:] <= NEG_CAP).all() and (bm.cpu()[:, :157] > NEG_CAP).all()
+    bm0 = blockmax.blockmax_scan(*_on(cuda, q, db), data["n"], scales=_on(cuda, sc)[0])
+    assert torch.equal(bm, bm0)
+    assert torch.equal(sbm, bm0.view(q.shape[0], 10, 16).amax(dim=2))
+    bm_only, none = slab_interleave.slab_scan(*_on(cuda, q, db), data["n"], 2048, nslab,
+                                              *_on(cuda, sc), sbm=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(bm_only, bm0)
+    assert slab_interleave.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8_dma_only", "int8_concat_only", "int8_full",
+                                  "int8_int32view", "bf16_dma_only", "bf16_concat_only",
+                                  "bf16_full"])
+def test_gather_variant_kernel_matches_plain(cuda, data, mode):
+    dtype, kind = mode.split("_", 1)
+    q, db, _ = data[dtype]
+    rng = np.random.default_rng(5)
+    bidx = torch.from_numpy(rng.integers(0, db.shape[0] // 128, (q.shape[0], 102))
+                            .astype(np.int32))
+    bidx[::5, 3] = -1                 # reads block 0
+    bidx[1, 7] = bidx[1, 8]           # one block twice in a group
+    n0 = gather_variants.launches[kind]
+    got, sink = gather_variants.gather_variant(*_on(cuda, q, db, bidx), kind, 34)
+    torch.cuda.synchronize()
+    assert gather_variants.launches[kind] == n0 + 1
+    want, wsink = gather_variants.gather_variant(q, db, bidx, kind, 34)
+    assert got.shape == want.shape == (q.shape[0], 3, 34, 128)
+    if dtype == "bf16" and kind == "full":
+        assert (got.cpu() - want).abs().max().item() <= 1e-5
+    else:
+        assert torch.equal(got.cpu(), want)
+    if kind == "full":
+        assert sink is None and wsink is None
+    else:
+        assert sink.item() == wsink.item()
+
+
+@pytest.mark.gpu
+def test_third_slice_kernels_reject_cpu_mixed_and_wrong_dtype(cuda, data):
+    q, db, sc = data["int8"]
+    db = db[:16384]
+    with pytest.raises(ValueError):
+        slab_interleave.slab_scan(q.to(cuda), db, 16384, 2048, 2, sc[:16384].to(cuda))
+    with pytest.raises(TypeError):
+        slab_interleave.slab_scan(*_on(cuda, q.float(), db.float()), 16384, 2048, 2)
+    bidx = torch.zeros((q.shape[0], 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather_variants.gather_variant(*_on(cuda, q, db), bidx, "dma_only", 2)
+    with pytest.raises(TypeError):
+        gather_variants.gather_variant(*_on(cuda, *data["bf16"][:2], bidx), "int32view", 2)
