@@ -8,6 +8,10 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             three scale modes) against their plain PyTorch versions on the
             card at N = 500,000 rows (Q = 32 and 256, bf16 and int8, length
             mask on and off), then timed there and at the 16M-row scan shape;
+            and the cover invariant at both shapes (Q = 32 and 256 at
+            500,000 rows, Q = 256 at 2^24 rows; bf16 and int8, mask on and
+            off): phase C's max over each selected block below n_valid
+            equals phase A's BM for it, exactly;
 4. fused    fused_topk against the plain exact scan: recall@100 = 1.0 at
             N = 500,000, Q = 256, k = 100 (scores within 1e-5 are ties);
 5. e2e      the `search` CLI on a 500,000-entry mmap DB with an int8 sidecar
@@ -170,13 +174,32 @@ def big_dbs(gen, dev):
     return {dtype: _bench_util.make_db(N_BIG, dtype, gen, dev) for dtype in ("bf16", "int8")}
 
 
+def cover_row(dtype, n, q, db, sc, bm, tl=None, qc=None, k=100):
+    """The cover invariant on the card: phase B's top-(k+1) blocks from
+    the kernel's BM, rescored by the phase-C kernel (int8 with the selected
+    blocks' scales); every compared block's max must equal its BM."""
+    from merizo_search_tpu_torch.ops import gather
+    from merizo_search_tpu_torch.ops.fused_scan import (cover_check, select_blocks,
+                                                        selected_scales)
+
+    bidx = select_blocks(bm, n, k)
+    kw = {} if sc is None else {"scale_sel": selected_scales(sc, bidx)}
+    scores = gather.gather_block_scores(q, db, bidx, n, tl, qc, **kw)
+    compared, differ = cover_check(bm, scores, bidx, n)
+    row = {"dtype": dtype, "n": db.shape[0], "q": q.shape[0], "mask": tl is not None,
+           "compared": compared, "differ": differ}
+    check(compared > 0 and differ == 0, f"phase C's block maxima differ from BM: {row}")
+    return row
+
+
 def kernels_phase(dev, gen, flush, big):
-    """Hold both kernels against their plain versions, then time them."""
+    """Hold both kernels against their plain versions and to the cover
+    invariant, then time them."""
     from merizo_search_tpu_torch.ops import blockmax, gather
     from merizo_search_tpu_torch.ops.fused_scan import select_blocks, selected_scales
     from merizo_search_tpu_torch.tools.perf_pipelined import make_queries
 
-    bm_modes, g_modes = [], []
+    bm_modes, g_modes, cover = [], [], []
     p = make_problem(N_MAIN, 256, gen, dev)
     for dtype in ("bf16", "int8"):
         q, db, sc = p[dtype]
@@ -190,6 +213,7 @@ def kernels_phase(dev, gen, flush, big):
                 torch.cuda.synchronize()
                 want = blockmax.blockmax_plain(*args)
                 err = max_err(got, want, dtype == "int8")
+                cover.append(cover_row(dtype, p["n"], qq, db, sc, got, tl, qc))
                 ms = time_ms(lambda: blockmax.blockmax_scan(*args), flush=flush)
                 plain_ms = time_ms(lambda: blockmax.blockmax_plain(*args), 3, flush)
                 npad, nb = db.shape[0], db.shape[0] // 128
@@ -242,6 +266,12 @@ def kernels_phase(dev, gen, flush, big):
         q = make_queries(256, dtype, gen, dev)[0]
         isz, nb = db.element_size(), N_BIG // 128
         bm = blockmax.blockmax_scan(q, db, N_BIG, scales=sc)
+        cover.append(cover_row(dtype, N_BIG, q, db, sc, bm))
+        tl = torch.rand(N_BIG, generator=gen, device=dev) * 280.0
+        qc = torch.rand(256, generator=gen, device=dev) * 400.0
+        cover.append(cover_row(dtype, N_BIG, q, db, sc,
+                               blockmax.blockmax_scan(q, db, N_BIG, tl, qc, sc), tl, qc))
+        del tl
         ms = time_ms(lambda: blockmax.blockmax_scan(q, db, N_BIG, scales=sc), 5, flush)
         b_ms, b_by = bound(N_BIG * 128 * isz + 256 * 128 * isz + 256 * nb * 4
                            + (nb * 4 if sc is not None else 0),
@@ -263,7 +293,7 @@ def kernels_phase(dev, gen, flush, big):
                         "ms": gms, "plain_ms": None, "bound_ms": gb_ms,
                         "bound_by": gb_by, "library_ms": None})
         del bm
-    return bm_modes, g_modes
+    return bm_modes, g_modes, cover
 
 
 def recall_check(fv, fi, pv, pi, k):
@@ -718,8 +748,10 @@ def main():
         flush = _bench_util.flush_buffer(dev)
         with Phase("kernels") as ph:
             big = big_dbs(gen, dev)
-            bm_modes, g_modes = kernels_phase(dev, gen, flush, big)
-            ph.notes.append(f"{len(bm_modes)} phase-A and {len(g_modes)} phase-C configurations")
+            bm_modes, g_modes, cover = kernels_phase(dev, gen, flush, big)
+            ph.notes.append(f"{len(bm_modes)} phase-A and {len(g_modes)} phase-C configurations; "
+                            f"cover invariant exact in {len(cover)} configurations, "
+                            f"{sum(r['compared'] for r in cover)} blocks")
 
         with Phase("fused") as ph:
             rec = fused_phase(dev, gen)
@@ -767,7 +799,7 @@ def main():
             entry("blockmax_scan", "merizo_search_tpu_torch/csrc/blockmax.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:65", bm_modes,
                   {"dtype": "bf16", "q": 32, "mask": True, "n": -(-N_MAIN // 128) * 128},
-                  launches["blockmax_scan"]),
+                  launches["blockmax_scan"], cover=cover),
             entry("gather_block_scores", "merizo_search_tpu_torch/csrc/gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:644", g_modes,
                   {"dtype": "bf16", "q": 32, "n": -(-N_MAIN // 128) * 128},

@@ -16,135 +16,168 @@
 // layout aids for the TPU's selection code.
 //
 // Bound on the H100: the DB is read once (bf16 256 B/row), so the floor is
-// bytes / 3.35 TB/s; at Q = 256 the dot work would be tensor-core bound only
-// with mma/wgmma. This first version computes with CUDA-core FMAs (bf16 ->
-// f32 fmaf; int8 -> __dp4a) and is therefore bound by FMA throughput, well above
-// the byte floor (PERF.md records both). Design: one CTA takes one tile of
-// 64 queries (staged once in shared memory) and walks `blocks_per_cta` DB
-// blocks; each block's 128 rows are staged in shared memory with 16-byte
-// coalesced loads. Each of the 8 warps owns 8 queries and each lane 4 rows
-// (lane, lane+32, +64, +96): a 4x8 register tile of scores, reduced over
-// rows in registers and then across the warp with shuffles. Only BM reaches
-// device memory.
+// bytes / 3.35 TB/s; the dot (2*Q*128 operations a row) reaches that line
+// at Q ~ 300 in bf16 on the tensor cores. Design: every score comes from
+// scan_common.cuh's `mma_rows` (mma.sync on tensor cores). A CTA of 8 warps
+// takes a query tile of 32 * qgroups queries (qgroups 1, 2, 4 or 8, sized to
+// the batch by the wrapper): each warp holds the B fragments of 32 queries
+// (four n-tiles) in registers for its whole walk, and the 8/qgroups warps of
+// a query group split a block's 8 m-tiles between them. The CTA walks a
+// contiguous range of blocks through a ring of Traits::STAGES slots filled
+// by cp.async, so the next blocks are in flight while one is multiplied.
+// A block's max is reduced on the accumulator fragments (a thread's two
+// rows, then shuffles over the 8 row groups), the warps of a group meet in a
+// small shared buffer, and one thread a query stores BM after the next
+// block's barrier. Only BM reaches device memory.
 #pragma once
 
 #include "scan_common.cuh"
 
 namespace mst {
 
-constexpr int QT = 64;        // queries per CTA
-constexpr int THREADS = 256;  // 8 warps x 8 queries
-constexpr int RPT = 4;        // rows per lane
-constexpr int QPW = 8;        // queries per warp
+constexpr int THREADS = 256;  // 8 warps
+constexpr int QG = 32;        // queries a warp holds (four n-tiles of 8)
 
 template <class T>
 size_t blockmax_smem() {
-  return (size_t)(QT + BLOCK) * T::PITCH * sizeof(typename T::Word) +
-         (BLOCK + QT) * sizeof(float);
+  return (size_t)T::STAGES * Slot<T>::BYTES + 2 * (THREADS / 32) * QG * sizeof(float);
 }
 
-// One CTA's work: query tile `qtile` against DB blocks [chunk *
-// blocks_per_cta, +blocks_per_cta). Needs THREADS threads and
-// blockmax_smem<T>() bytes at `smem`. blockmax_kernel runs it with the CTA's
-// grid coordinates; bm_gather.cu runs it from the phase-A part of its grid;
-// slab_interleave.cu also passes `part` [nq, nchunks], which gets the max of
-// the BM values the CTA wrote for each query (the chunk's superblock max):
-// after its walk each warp reads back the BM it wrote. Updating a running
-// max in the per-block epilogue instead cost 16-18% of phase A on the H100
-// (PERF.md). Callers pass tl/qcap/part as literal nullptr to compile their
-// code out.
-template <class T>
+// One CTA's work: the query tile `qtile` (32 * qgroups queries) against DB
+// blocks [chunk * blocks_per_cta, +blocks_per_cta). Needs THREADS threads
+// and blockmax_smem<T>() bytes at `smem`. LEN compiles the length channel
+// (tl, qcap) in. blockmax_kernel runs it with the CTA's grid coordinates;
+// bm_gather.cu runs it from the phase-A part of its grid; slab_interleave.cu
+// also passes `part` [nq, nchunks], which gets the max of the BM values the
+// CTA wrote for each query (the chunk's superblock max), kept in a register
+// by the thread that stores that query's BM. Callers without it pass a
+// literal nullptr.
+template <class T, bool LEN>
 __device__ __forceinline__ void
 blockmax_body(unsigned char* smem, const typename T::In* __restrict__ q,
               const typename T::In* __restrict__ db,
               const float* __restrict__ tl, const float* __restrict__ qcap,
               const float* __restrict__ scales, float* __restrict__ bm,
-              int nq, int nb, long long n_valid, int blocks_per_cta, int qtile,
-              int chunk, float* __restrict__ part = nullptr) {
-  using Word = typename T::Word;
+              int nq, int nb, long long n_valid, int qgroups, int blocks_per_cta,
+              int qtile, int chunk, float* __restrict__ part = nullptr) {
   using Acc = typename T::Acc;
-  Word* qs = reinterpret_cast<Word*>(smem);          // [QT][PITCH]
-  Word* xs = qs + QT * T::PITCH;                     // [BLOCK][PITCH]
-  float* tls = reinterpret_cast<float*>(xs + BLOCK * T::PITCH);  // [BLOCK]
-  float* qcs = tls + BLOCK;                          // [QT]
+  constexpr int S = T::STAGES;
+  Acc* red = reinterpret_cast<Acc*>(smem + S * Slot<T>::BYTES);  // [2][8 warps][QG]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = qtile * QT;
-  const bool use_len = tl != nullptr;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wpg = (THREADS / 32) / qgroups;    // warps a query group
+  const int grp = warp / wpg;
+  const int mt0 = (warp % wpg) * qgroups;      // this warp's first m-tile
+  const int qt = QG * qgroups;                 // queries in the tile
+  const int q0 = qtile * qt, qbase = q0 + grp * QG;
+  const int ntv = max(0, min(4, (nq - qbase + 7) / 8));  // n-tiles with queries
 
-  stage_rows<T>(q, q0, nq, QT, qs);
-  if (use_len)
-    for (int i = threadIdx.x; i < QT; i += THREADS)
-      qcs[i] = q0 + i < nq ? qcap[q0 + i] : 0.f;
-
-  const Word* const xr[RPT] = {xs + lane * T::PITCH, xs + (lane + 32) * T::PITCH,
-                               xs + (lane + 64) * T::PITCH,
-                               xs + (lane + 96) * T::PITCH};
-  const Word* const qr[QPW] = {
-      qs + (warp * QPW + 0) * T::PITCH, qs + (warp * QPW + 1) * T::PITCH,
-      qs + (warp * QPW + 2) * T::PITCH, qs + (warp * QPW + 3) * T::PITCH,
-      qs + (warp * QPW + 4) * T::PITCH, qs + (warp * QPW + 5) * T::PITCH,
-      qs + (warp * QPW + 6) * T::PITCH, qs + (warp * QPW + 7) * T::PITCH};
+  uint32_t bfrag[4][T::KSTEPS][2];
+  float qc[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int qi = qbase + j * 8 + g;
+    load_query_frag<T>(bfrag[j], q, qi, qi < nq);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int qj = qbase + j * 8 + tig * 2 + c;
+      qc[j][c] = LEN && qj < nq ? qcap[qj] : 0.f;
+    }
+  }
 
   const int b_begin = chunk * blocks_per_cta;
-  const int b_end = min(nb, b_begin + blocks_per_cta);
-  for (int b = b_begin; b < b_end; ++b) {
-    const long long row0 = (long long)b * BLOCK;
-    __syncthreads();  // the previous block's rows are no longer read
-    stage_rows<T>(db, row0, row0 + BLOCK, BLOCK, xs);
-    if (use_len && threadIdx.x < BLOCK) tls[threadIdx.x] = tl[row0 + threadIdx.x];
-    __syncthreads();
+  const int nblk = max(0, min(nb, b_begin + blocks_per_cta) - b_begin);
+  const float* tls = LEN ? tl : nullptr;
 
-    Acc acc[RPT][QPW];
-    dot_tile<T, RPT, QPW>(acc, xr, qr);
+  // BM of block b from the group partials in red[par]: one thread a query,
+  // which also keeps the max of what it stores for `part`
+  float pmax = -INFINITY;
+  auto finish = [&](int b, int par) {
+    const int t = threadIdx.x;
+    if (t >= qt || q0 + t >= nq) return;
+    const Acc* r = red + (par * (THREADS / 32) + (t / QG) * wpg) * QG + t % QG;
+    Acc m = r[0];
+    for (int k = 1; k < wpg; ++k) {
+      if constexpr (T::IS_INT) m = max(m, r[k * QG]);
+      else m = fmaxf(m, r[k * QG]);
+    }
+    float v;
+    if constexpr (T::IS_INT) v = (float)m * scales[(long long)b * BLOCK];
+    else v = m;
+    v = (long long)b * BLOCK < n_valid ? fmaxf(v, NEG_CAP) : NEG_CAP;
+    bm[(long long)(q0 + t) * nb + b] = v;
+    if (part != nullptr) pmax = fmaxf(pmax, v);
+  };
 
-    const float scale = scales != nullptr ? scales[row0] : 1.f;
-    const bool blk_valid = row0 < n_valid;
 #pragma unroll
-    for (int c = 0; c < QPW; ++c) {
-      const int qi = warp * QPW + c;
-      float m;
-      if constexpr (T::IS_INT) {
-        int mi = INT_MASKED;
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < nblk) load_block<T>(smem + st * Slot<T>::BYTES, db, tls, b_begin + st);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nblk; ++i) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // block i has landed; slot (i-1) % S and red[(i-1)&1] are free
+    if (i > 0) finish(b_begin + i - 1, (i - 1) & 1);
+    if (i + S - 1 < nblk)
+      load_block<T>(smem + ((i + S - 1) % S) * Slot<T>::BYTES, db, tls, b_begin + i + S - 1);
+    cp_async_commit();
+
+    const unsigned char* slot = smem + (i % S) * Slot<T>::BYTES;
+    const float* tlb = reinterpret_cast<const float*>(slot + Slot<T>::TL);
+    Acc run[4][2];
+    Acc lowest;
+    if constexpr (T::IS_INT) lowest = INT_MASKED; else lowest = -INFINITY;
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          int v = acc[r][c];
-          if (use_len && !(tls[lane + 32 * r] <= qcs[qi])) v = INT_MASKED;
-          mi = max(mi, v);
+    for (int j = 0; j < 4; ++j) run[j][0] = run[j][1] = lowest;
+#pragma unroll 1
+    for (int mt = mt0; mt < mt0 + qgroups; ++mt) {
+      Acc acc[4][4];
+      mma_rows<T, 4>(acc, slot + mt * 16 * Slot<T>::PITCH, bfrag, ntv);
+      float t0 = 0.f, t1 = 0.f;
+      if constexpr (LEN) t0 = tlb[mt * 16 + g], t1 = tlb[mt * 16 + g + 8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          Acc v0 = acc[j][c], v1 = acc[j][2 + c];
+          if constexpr (T::IS_INT) {
+            if (LEN && !(t0 <= qc[j][c])) v0 = INT_MASKED;
+            if (LEN && !(t1 <= qc[j][c])) v1 = INT_MASKED;
+            run[j][c] = max(run[j][c], max(v0, v1));
+          } else {
+            if (LEN && !(t0 <= qc[j][c])) v0 = -INFINITY;
+            if (LEN && !(t1 <= qc[j][c])) v1 = -INFINITY;
+            run[j][c] = fmaxf(run[j][c], fmaxf(v0, v1));
+          }
         }
+    }
+    // over the 8 row groups (lane bits 2-4); lanes 0-3 then hold columns
+    // j*8 + lane*2 + c of the warp's 32 queries
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mi = max(mi, __shfl_xor_sync(0xffffffffu, mi, off));
-        m = (float)mi * scale;
-      } else {
-        m = -INFINITY;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          float v = acc[r][c];
-          if (use_len && !(tls[lane + 32 * r] <= qcs[qi])) v = -INFINITY;
-          m = fmaxf(m, v);
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const Acc o = __shfl_xor_sync(0xffffffffu, run[j][c], off);
+          if constexpr (T::IS_INT) run[j][c] = max(run[j][c], o);
+          else run[j][c] = fmaxf(run[j][c], o);
         }
+    if (g == 0) {
+      Acc* r = red + ((i & 1) * (THREADS / 32) + warp) * QG;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      for (int j = 0; j < 4; ++j) {
+        r[j * 8 + tig * 2] = run[j][0];
+        r[j * 8 + tig * 2 + 1] = run[j][1];
       }
-      if (lane == 0 && q0 + qi < nq)
-        bm[(long long)(q0 + qi) * nb + b] = blk_valid ? fmaxf(m, NEG_CAP) : NEG_CAP;
     }
   }
-  if (part != nullptr) {
-    __syncwarp();  // lane 0's BM stores are visible to the warp's lanes
-    const int nchunks = (nb + blocks_per_cta - 1) / blocks_per_cta;
-    for (int c = 0; c < QPW; ++c) {
-      const int qi = q0 + warp * QPW + c;
-      if (qi >= nq) break;  // the same for every lane of the warp
-      float m = -INFINITY;
-      for (int b = b_begin + lane; b < b_end; b += 32) m = fmaxf(m, bm[(long long)qi * nb + b]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) part[(long long)qi * nchunks + chunk] = m;
-    }
-  }
+  __syncthreads();
+  if (nblk > 0) finish(b_begin + nblk - 1, (nblk - 1) & 1);
+  if (part != nullptr && threadIdx.x < qt && q0 + threadIdx.x < nq)
+    part[(long long)(q0 + threadIdx.x) * ((nb + blocks_per_cta - 1) / blocks_per_cta) + chunk] =
+        pmax;
 }
 
 }  // namespace mst

@@ -16,9 +16,9 @@
 // The grid is blockmax's (query tile, block chunk) CTAs, flattened in the
 // order of its own launch, followed by gather's (query, column group) CTAs;
 // blockIdx.x picks the role, and each role runs the CTA body of its
-// standalone kernel. Every score is therefore computed by the same dot_tile
-// on the same staged rows, and the pipelined results equal the sequential
-// fused_topk's bit for bit.
+// standalone kernel. Every score is therefore computed by the same mma_rows
+// (scan_common.cuh) on the same operand positions, and the pipelined
+// results equal the sequential fused_topk's bit for bit.
 //
 // Not carried over from the TPU: the grid windows that tie each previous
 // query to a run of grid steps, the padding of KB to 8, the SMEM/VMEM twin
@@ -27,14 +27,13 @@
 // phase-C CTAs are more CTAs, which the hardware schedules onto free SMs.
 //
 // Bound on the H100: bytes -- the DB read once (phase C's blocks are rows
-// of the same DB) over 3.35 TB/s. Like phase A it computes with CUDA-core
-// fmaf / __dp4a, so it is bound by FMA throughput, far above that floor.
-// One launch has one register and shared-memory budget for both roles
-// (phase A's: 256 threads, about 100 KB a CTA in bf16), so phase-C CTAs run
-// at phase A's occupancy and 128 of their 256 threads stage rows but score
-// none. Measured (PERF.md): this launch beats the two sequential ones
-// mainly because phase A's body is compiled here without the length
-// channel; phase C's CTAs run after phase A's and mostly add their time.
+// of the same DB) over 3.35 TB/s. Both roles compute on tensor cores
+// (mma.sync). One launch has one register and shared-memory budget for
+// both roles (phase A's: 256 threads and its ring), so phase-C CTAs run at
+// phase A's occupancy and their warps past the 4th stage rows but score
+// none. Phase A's CTAs take the grid geometry of the standalone launch
+// (query groups and blocks a CTA from ops/blockmax.py); phase C's CTAs run
+// after phase A's and mostly add their time.
 #include <algorithm>
 #include <climits>
 
@@ -44,11 +43,11 @@
 namespace mst {
 
 template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, T::CTAS)
 bm_gather_kernel(const typename T::In* __restrict__ q,
                  const typename T::In* __restrict__ db,
                  const float* __restrict__ scales, float* __restrict__ bm,
-                 int nq, int nb, long long n_valid, int blocks_per_cta,
+                 int nq, int nb, long long n_valid, int qgroups, int blocks_per_cta,
                  int a_ctas, const typename T::In* __restrict__ pv_q,
                  const int* __restrict__ pv_bidx,
                  const float* __restrict__ pv_scale_sel, float* __restrict__ prev,
@@ -56,9 +55,9 @@ bm_gather_kernel(const typename T::In* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const int id = blockIdx.x;
   if (id < a_ctas) {
-    const int qtiles = (nq + QT - 1) / QT;
-    blockmax_body<T>(smem, q, db, nullptr, nullptr, scales, bm, nq, nb, n_valid,
-                     blocks_per_cta, id % qtiles, id / qtiles);
+    const int qtiles = (nq + QG * qgroups - 1) / (QG * qgroups);
+    blockmax_body<T, false>(smem, q, db, nullptr, nullptr, scales, bm, nq, nb, n_valid,
+                            qgroups, blocks_per_cta, id % qtiles, id / qtiles);
   } else {
     const int c = id - a_ctas;
     gather_body<T>(smem, pv_q, db, nullptr, nullptr, pv_bidx, pv_scale_sel,
@@ -69,14 +68,17 @@ bm_gather_kernel(const typename T::In* __restrict__ q,
 template <class T>
 cudaError_t launch_bm_gather(const void* q, const void* db, const float* scales,
                              float* bm, int nq, int nb, long long n_valid,
-                             int blocks_per_cta, const void* pv_q,
+                             int qgroups, int blocks_per_cta, const void* pv_q,
                              const int* pv_bidx, const float* pv_scale_sel,
                              float* prev, int nq_prev, int kb,
                              cudaStream_t stream) {
   const size_t smem = std::max(blockmax_smem<T>(), gather_smem<T>());
   cudaError_t err = allow_smem(bm_gather_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const long long a_ctas = (long long)((nq + QT - 1) / QT) *
+  if (qgroups != 1 && qgroups != 2 && qgroups != 4 && qgroups != 8)
+    return cudaErrorInvalidValue;
+  const int qt = QG * qgroups;
+  const long long a_ctas = (long long)((nq + qt - 1) / qt) *
                            ((nb + blocks_per_cta - 1) / blocks_per_cta);
   const int groups = (kb + GROUP - 1) / GROUP;
   const long long ctas = a_ctas + (long long)nq_prev * groups;
@@ -84,7 +86,7 @@ cudaError_t launch_bm_gather(const void* q, const void* db, const float* scales,
   using In = typename T::In;
   bm_gather_kernel<T><<<(unsigned)ctas, THREADS, smem, stream>>>(
       static_cast<const In*>(q), static_cast<const In*>(db), scales, bm, nq, nb,
-      n_valid, blocks_per_cta, (int)a_ctas, static_cast<const In*>(pv_q),
+      n_valid, qgroups, blocks_per_cta, (int)a_ctas, static_cast<const In*>(pv_q),
       pv_bidx, pv_scale_sel, prev, kb, groups);
   return cudaGetLastError();
 }
@@ -95,7 +97,7 @@ cudaError_t launch_bm_gather(const void* q, const void* db, const float* scales,
 // required, pv_scale_sel optional).
 extern "C" int mst_bm_gather(int dtype, const void* q, const void* db,
                              const void* scales, void* bm, int nq, int nb,
-                             long long n_valid, int blocks_per_cta,
+                             long long n_valid, int qgroups, int blocks_per_cta,
                              const void* pv_q, const void* pv_bidx,
                              const void* pv_scale_sel, void* prev, int nq_prev,
                              int kb, void* stream) {
@@ -107,11 +109,11 @@ extern "C" int mst_bm_gather(int dtype, const void* q, const void* db,
   auto p = static_cast<float*>(prev);
   if (dtype == 0)
     return mst::launch_bm_gather<mst::Bf16>(q, db, sc, b, nq, nb, n_valid,
-                                            blocks_per_cta, pv_q, ib, ss, p, nq_prev,
+                                            qgroups, blocks_per_cta, pv_q, ib, ss, p, nq_prev,
                                             kb, s);
   if (dtype == 1)
     return mst::launch_bm_gather<mst::Int8>(q, db, sc, b, nq, nb, n_valid,
-                                            blocks_per_cta, pv_q, ib, ss, p, nq_prev,
+                                            qgroups, blocks_per_cta, pv_q, ib, ss, p, nq_prev,
                                             kb, s);
   return cudaErrorInvalidValue;
 }

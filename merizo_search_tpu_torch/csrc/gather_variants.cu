@@ -19,8 +19,8 @@
 //                  lanes 32..127 are 0. The same at every g.
 // `full` is phase C: each CTA runs gather.cuh's gather_cols over its G
 // columns, with a negative index clamped instead of padded, so its scores
-// are the production kernel's (dot_tile). The query is an argument; the
-// TPU kernel captured it from a module global.
+// are the production kernel's (mma_rows, scan_common.cuh). The query is an
+// argument; the TPU kernel captured it from a module global.
 //
 // A TPU BlockSpec moves every whole block whatever the body reads; on a GPU
 // only the loads a kernel makes move bytes. So the three reduction modes

@@ -11,8 +11,11 @@
 //   none:   out[s, q, j], j < 8, = max over the step's slabs (tile/nslab rows
 //           each) of score(q, slab start + j): the small output that kept
 //           the dot alive on the TPU.
-// Scores are those of phase A: dot_tile (scan_common.cuh) on staged rows,
-// f32 fmaf chains for bf16, int32 __dp4a chains (written as f32) for int8.
+// mini_scan keeps the CUDA-core dot that phase A had before phase A moved
+// to tensor cores (scan_common.cuh's mma_rows): dot_tile below, on rows
+// staged as f32 (bf16) or int32 words (int8), f32 fmaf chains for bf16 and
+// int32 __dp4a chains (written as f32) for int8. So it is no longer phase
+// A's dot; its readings stay comparable with earlier ones.
 //
 // stream_probe replaces `_probe_kernel` of tools/perf_hbm.py: for x int8
 // [n, d], o[r, c] = i + sum over steps s of x[s*tile + r, c] as f32, r < 8.
@@ -26,9 +29,9 @@
 //
 // Bounds on the H100: mini_scan reads the DB once (4 GiB of bf16 at 2^24
 // rows: 1.28 ms at 3.35 TB/s) and does 2*Q*N*128 operations (1.11 ms at
-// Q = 256 at the bf16 tensor-core peak); it computes on CUDA cores as phase A
-// does, so FMA throughput bounds it. stream_probe is bound by one read of x.
-// Design: mini_scan runs phase A's CTA shape (64 queries against a chunk of
+// Q = 256 at the bf16 tensor-core peak); it computes on CUDA cores, so FMA
+// throughput bounds it. stream_probe is bound by one read of x.
+// Design: mini_scan runs the CUDA-core phase A's CTA shape (64 queries against a chunk of
 // blocks inside one step; a 4x8 register tile a lane) with the mode's
 // epilogue; in `none` mode the CTAs of one step meet through atomicMax on an
 // order-preserving integer image of the float. stream_probe gives each tile
@@ -40,6 +43,102 @@
 namespace mst {
 
 constexpr int STHREADS = 512;
+constexpr int QT = 64;   // queries per mini_scan CTA
+constexpr int RPT = 4;   // rows per lane
+constexpr int QPW = 8;   // queries per warp
+
+// How mini_scan stages and multiplies rows of T on CUDA cores.
+template <class T>
+struct Cc;
+
+template <>
+struct Cc<Bf16> {
+  using In = Bf16::In;
+  using Word = float;
+  using Vec = float4;
+  using Acc = float;
+  static constexpr bool IS_INT = false;
+  static constexpr int WORDS = DIM;          // staged words per row
+  static constexpr int WPC = 8;              // words per 16-byte chunk
+  static constexpr int PITCH = WORDS + 4;    // smem row pitch (words)
+  __device__ static __forceinline__ Acc mac(Acc acc, Word a, Word b) {
+    return fmaf(a, b, acc);
+  }
+  __device__ static __forceinline__ void unpack(uint4 v, Word* dst) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+    reinterpret_cast<float4*>(dst)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+  }
+};
+
+template <>
+struct Cc<Int8> {
+  using In = Int8::In;
+  using Word = int;
+  using Vec = int4;
+  using Acc = int;
+  static constexpr bool IS_INT = true;
+  static constexpr int WORDS = DIM / 4;
+  static constexpr int WPC = 4;
+  static constexpr int PITCH = WORDS + 4;
+  __device__ static __forceinline__ Acc mac(Acc acc, Word a, Word b) {
+    return __dp4a(a, b, acc);
+  }
+  __device__ static __forceinline__ void unpack(uint4 v, Word* dst) {
+    *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(&v);
+  }
+};
+
+// Stage `nrows` rows of a row-major [*, DIM] array, starting at row `row0`,
+// into shared memory with pitch C::PITCH. Rows at or past `row_end` are
+// zero-filled. Global reads are 16-byte loads, consecutive threads on
+// consecutive addresses.
+template <class C>
+__device__ __forceinline__ void stage_rows(const typename C::In* __restrict__ src,
+                                           long long row0, long long row_end,
+                                           int nrows, typename C::Word* dst) {
+  constexpr int CPR = DIM * (int)sizeof(typename C::In) / 16;  // chunks per row
+  for (int c = threadIdx.x; c < nrows * CPR; c += blockDim.x) {
+    const int r = c / CPR, k = c % CPR;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < row_end)
+      v = reinterpret_cast<const uint4*>(src + (row0 + r) * DIM)[k];
+    C::unpack(v, dst + r * C::PITCH + k * C::WPC);
+  }
+}
+
+// acc[r][c] = sum over words w of x[r][w] * q[c][w], accumulated in word
+// order by C::mac.
+template <class C, int R, int N>
+__device__ __forceinline__ void dot_tile(typename C::Acc (&acc)[R][N],
+                                         const typename C::Word* const (&x)[R],
+                                         const typename C::Word* const (&q)[N]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[r][c] = 0;
+#pragma unroll 1
+  for (int w = 0; w < C::WORDS; w += 4) {
+    typename C::Vec xv[R], qv[N];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      xv[r] = *reinterpret_cast<const typename C::Vec*>(x[r] + w);
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      qv[c] = *reinterpret_cast<const typename C::Vec*>(q[c] + w);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        acc[r][c] = C::mac(acc[r][c], qv[c].x, xv[r].x);
+        acc[r][c] = C::mac(acc[r][c], qv[c].y, xv[r].y);
+        acc[r][c] = C::mac(acc[r][c], qv[c].z, xv[r].z);
+        acc[r][c] = C::mac(acc[r][c], qv[c].w, xv[r].w);
+      }
+  }
+}
 
 // Signed integers in the order of the floats they stand for, so atomicMax
 // on them is a max of the floats (no NaN here).
@@ -164,11 +263,12 @@ template <class T>
 cudaError_t launch_mini_scan(const void* q, const void* db, float* out,
                              float* sink, int nq, int nsteps, int nbt, int chunk,
                              int slab_blocks, int reduce, cudaStream_t stream) {
-  const size_t smem = (size_t)(QT + BLOCK) * T::PITCH * sizeof(typename T::Word);
-  cudaError_t err = allow_smem(mini_scan_kernel<T>, smem);
+  using C = Cc<T>;
+  const size_t smem = (size_t)(QT + BLOCK) * C::PITCH * sizeof(typename C::Word);
+  cudaError_t err = allow_smem(mini_scan_kernel<C>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((nq + QT - 1) / QT, (unsigned)((long long)nsteps * nbt / chunk));
-  mini_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
+  mini_scan_kernel<C><<<grid, THREADS, smem, stream>>>(
       static_cast<const typename T::In*>(q), static_cast<const typename T::In*>(db),
       out, sink, nq, nbt, chunk, slab_blocks, reduce);
   return cudaGetLastError();

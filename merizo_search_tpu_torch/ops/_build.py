@@ -85,20 +85,21 @@ def library() -> ctypes.CDLL:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mst_blockmax_scan.restype = ci
         lib.mst_blockmax_scan.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ll,
-                                          ci, vp]
+                                          ci, ci, vp]
         lib.mst_gather_block_scores.restype = ci
         lib.mst_gather_block_scores.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
                                                 vp, ci, ci, ll, vp]
         lib.mst_bm_gather.restype = ci
-        lib.mst_bm_gather.argtypes = [ci, vp, vp, vp, vp, ci, ci, ll, ci, vp, vp,
-                                      vp, vp, ci, ci, vp]
+        lib.mst_bm_gather.argtypes = [ci, vp, vp, vp, vp, ci, ci, ll, ci, ci, vp,
+                                      vp, vp, vp, ci, ci, vp]
         lib.mst_mini_scan.restype = ci
         lib.mst_mini_scan.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                       vp]
         lib.mst_stream_probe.restype = ci
         lib.mst_stream_probe.argtypes = [vp, vp, vp, ci, ll, ci, vp]
         lib.mst_slab_scan.restype = ci
-        lib.mst_slab_scan.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci, vp]
+        lib.mst_slab_scan.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci, ci,
+                                      vp]
         lib.mst_gather_variant.restype = ci
         lib.mst_gather_variant.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         _lib = lib

@@ -4,6 +4,8 @@
 tensors and runs `blockmax_plain`, the plain PyTorch version of the same
 contract, for CPU tensors. The kernel replaces the Pallas `_bm_kernel` of
 the JAX package; its header says what bounds it on the H100.
+`phase_a_geometry` sizes its launch: the query tile to the batch and a
+grid resident at once, each CTA walking a contiguous range of blocks.
 
 Contract (both versions), for q [Q, 128] and db [Npad, 128] of one dtype
 (bf16 or int8 for the kernel; the plain version also takes f32), Npad a
@@ -67,11 +69,32 @@ def blockmax_plain(q, db, n_valid: int, tl=None, qcap=None, scales=None):
     return torch.where(valid[None, :], torch.clamp(m, min=NEG_CAP), NEG_CAP)
 
 
-def blocks_per_cta(nq: int, nb: int) -> int:
-    """DB blocks each CTA walks: enough CTAs for several waves on 132 SMs,
-    and few enough query-tile re-stagings."""
-    ntiles = -(-nq // 64)
-    return max(1, min(16, nb * ntiles // 2048))
+QUERY_GROUP = 32                                  # queries a warp holds (blockmax.cuh QG)
+CTAS_PER_SM = {torch.bfloat16: 2, torch.int8: 3}  # Traits::CTAS, csrc/scan_common.cuh
+
+
+def query_groups(nq: int) -> int:
+    """Query groups of 32 in a CTA's query tile (1, 2, 4 or 8): the fewest
+    that hold the batch, at most 256 queries a tile, so a small batch
+    multiplies no query columns of zeros beyond its last n-tile of 8."""
+    return next(g for g in (1, 2, 4, 8) if QUERY_GROUP * g >= min(nq, 256))
+
+
+def phase_a_geometry(nq: int, nb: int, sms: int, ctas_per_sm: int) -> tuple[int, int]:
+    """(qgroups, blocks_per_cta) of a phase-A launch: query tiles of
+    32 * qgroups queries, and about sms * ctas_per_sm CTAs in all (a grid
+    that is resident at once), each walking a contiguous range of
+    blocks_per_cta blocks, so each CTA loads its query fragments once."""
+    qg = query_groups(nq)
+    qtiles = -(-nq // (QUERY_GROUP * qg))
+    chunks = max(1, min(nb, sms * ctas_per_sm // qtiles))
+    return qg, -(-nb // chunks)
+
+
+def launch_geometry(q, nb: int) -> tuple[int, int]:
+    """phase_a_geometry for a CUDA tensor q's batch and card."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return phase_a_geometry(q.shape[0], nb, sms, CTAS_PER_SM[q.dtype])
 
 
 def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
@@ -98,7 +121,7 @@ def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
         return out
     rc = _build.library().mst_blockmax_scan(
         _DTYPE_CODE[db.dtype], *args, out.data_ptr(), nq, nb, int(n_valid),
-        blocks_per_cta(nq, nb), torch.cuda.current_stream(dev).cuda_stream)
+        *launch_geometry(q, nb), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan")
     launches += 1
     return out

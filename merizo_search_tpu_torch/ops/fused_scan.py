@@ -76,6 +76,22 @@ def selected_scales(scales, bidx):
                        1.0).contiguous()
 
 
+def cover_check(bm, scores, bidx, n_valid: int) -> tuple[int, int]:
+    """The invariant the cover argument rests on, counted: for each selected
+    column whose block lies wholly below n_valid, the max over the block's
+    128 phase-C scores (NEG_CAP where masked; int8 with the block scale
+    applied, as `scale_sel` does) equals BM[q, b] exactly. Columns where
+    phase C keeps no row carry each phase's own sentinel (int8 phase A: the
+    masked integer times the scale) and are not compared. Returns
+    (columns compared, columns that differ)."""
+    qn, kb = bidx.shape
+    b = bidx.long()
+    cmax = scores.view(qn, kb, BLOCK).amax(dim=2)
+    cmp = (b >= 0) & ((b + 1) * BLOCK <= n_valid) & (cmax > -3.0e38)
+    differ = cmp & (cmax != torch.gather(bm, 1, b.clamp(min=0)))
+    return int(cmp.sum()), int(differ.sum())
+
+
 def final_topk(scores, bidx, k: int):
     """The top-k rows of phase C's scores [Q, KB*128] over the blocks bidx
     [Q, KB]: (v [Q, k] float32, idx [Q, k] int64), -inf / -1 where fewer

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .blockmax import _DTYPE_CODE, blockmax_plain, blocks_per_cta
+from .blockmax import _DTYPE_CODE, blockmax_plain, launch_geometry
 from .fused_scan import final_topk, select_blocks, selected_scales
 from .gather import gather_plain
 from .topk import BLOCK
@@ -95,7 +95,7 @@ def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
         return bm, prev
     rc = _build.library().mst_bm_gather(
         _DTYPE_CODE[db.dtype], *args, bm.data_ptr(), nq, nb, int(n_valid),
-        blocks_per_cta(nq, nb), *pv, prev.data_ptr(), nqp, kb,
+        *launch_geometry(q, nb), *pv, prev.data_ptr(), nqp, kb,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan_gather")
     launches += 1

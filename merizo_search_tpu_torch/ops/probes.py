@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .blockmax import _DTYPE_CODE, blocks_per_cta
+from .blockmax import _DTYPE_CODE
 from .topk import BLOCK
 
 TILE = 32768         # perf_int8_floor's fixed tile (the JAX DEFAULT_TILE)
@@ -29,6 +29,14 @@ MODES = ("none", "reduce")
 PLAIN_STEPS = 1 << 20   # DB rows per piece of mini_scan_plain
 
 launches = {"mini_scan": 0, "stream_probe": 0}   # since the last reset
+
+
+def blocks_per_cta(nq: int, nb: int) -> int:
+    """DB blocks each mini_scan CTA walks (phase A's rule before phase A
+    moved to tensor cores): enough CTAs for several waves on 132 SMs, and
+    few enough query-tile re-stagings."""
+    ntiles = -(-nq // 64)
+    return max(1, min(16, nb * ntiles // 2048))
 
 
 def _validate_mini(q, db, tile, nslab, reduce_mode):

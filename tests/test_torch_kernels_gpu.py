@@ -12,7 +12,9 @@ pipelined scan equals the sequential one on the card exactly (the same
 device arithmetic); stream_probe exact (sums of small integers, XOR);
 slab_scan equals blockmax_scan with the length channel off exactly (the
 same dot routine); the gather variants' sums and sinks exact (f32 sums in
-one order, XOR), their `full` scores as phase C's.
+one order, XOR), their `full` scores as phase C's; the cover invariant
+exact: phase C's max over a selected block's rows is phase A's BM for
+that block, bit for bit (the two phases share one tensor-core routine).
 """
 
 import numpy as np
@@ -21,7 +23,8 @@ import torch
 
 from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined, probes,
                                          slab_interleave, topk)
-from merizo_search_tpu_torch.ops.fused_scan import fused_topk, select_blocks, selected_scales
+from merizo_search_tpu_torch.ops.fused_scan import (cover_check, fused_topk, select_blocks,
+                                                    selected_scales)
 
 NEG_CAP = -3.4e38
 
@@ -288,3 +291,48 @@ def test_third_slice_kernels_reject_cpu_mixed_and_wrong_dtype(cuda, data):
         gather_variants.gather_variant(*_on(cuda, q, db), bidx, "dma_only", 2)
     with pytest.raises(TypeError):
         gather_variants.gather_variant(*_on(cuda, *data["bf16"][:2], bidx), "int32view", 2)
+
+
+@pytest.fixture(scope="module")
+def odd():
+    """Q = 300 unit queries (the tests take 1, 7, 33 or all 300 of them)
+    and 20,000 unit rows: n_valid ends mid-block (156 * 128 + 32)."""
+    rng = np.random.default_rng(9)
+    n, qn = 20_000, 300
+    npad = -(-n // 128) * 128
+    db = np.zeros((npad, 128), np.float32)
+    db[:n] = rng.normal(size=(n, 128))
+    db[:n] /= np.linalg.norm(db[:n], axis=1, keepdims=True)
+    q = rng.normal(size=(qn, 128)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    tl = np.full(npad, 1e9, np.float32)
+    tl[:n] = rng.uniform(50, 400, n).astype(np.float32) * np.float32(0.7)
+    db8, sc = topk.quantize_blocks(db)
+    q8, _ = topk.quantize_rows(q)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    return {"n": n, "tl": t(tl), "qlen": t(rng.uniform(50, 400, qn).astype(np.float32)),
+            "bf16": (t(q).to(torch.bfloat16), t(db).to(torch.bfloat16), None),
+            "int8": (t(q8), t(db8), t(sc))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("use_len", [False, True])
+@pytest.mark.parametrize("nq", [1, 7, 33, 300])
+def test_cover_invariant_on_card(cuda, odd, dtype, use_len, nq):
+    """Phase A's BM against its plain version (padded query columns never
+    reach BM), then phase C on the blocks phase B picks from it: the max of
+    a block's phase-C scores equals its BM exactly."""
+    q, db, sc = _on(cuda, *odd[dtype])
+    q = q[:nq].contiguous()
+    n = odd["n"]
+    lk = _on(cuda, odd["tl"], odd["qlen"][:nq].contiguous()) if use_len else (None, None)
+    bm = blockmax.blockmax_scan(q, db, n, *lk, sc)
+    torch.cuda.synchronize()
+    _compare(bm, blockmax.blockmax_plain(q, db, n, *lk, sc), dtype == "int8")
+    bidx = select_blocks(bm, n, 20)
+    kw = {} if sc is None else {"scale_sel": selected_scales(sc, bidx)}
+    scores = gather.gather_block_scores(q, db, bidx, n, *lk, **kw)
+    torch.cuda.synchronize()
+    compared, differ = cover_check(bm, scores, bidx, n)
+    assert compared >= nq * 20 and differ == 0

@@ -154,7 +154,7 @@ def test_slab_tool_runs_on_cpu(capsys):
                                      "--tiles", "1024,2048", "--nslabs", "1,8,16",
                                      "--n-valid", "8000", "--no-sbm", "--iters", "1"])
     rows = out["rows"]
-    # nslab 16 (no instantiation of the kernel) is skipped
+    # nslab 16 (not a value the kernel takes) is skipped
     slabs = [f"slab tile={t} x{n}{bm}" for t in (1024, 2048) for n in (1, 8)
              for bm in ("", " BM only")]
     assert [r["what"] for r in rows] == (
