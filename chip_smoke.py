@@ -25,10 +25,13 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             sequential one; then its kernel (bm_gather) against its plain
             version at N = 500,000 and at 2^24 rows, timed there.
 7. probes   the scan's floor probes through their tools (tools/perf_hbm,
-            perf_int8_floor, perf_floor2 at 2^24 rows, Q = 256): the read
-            rate, the dot alone and the dot with the reduce; then mini_scan
-            (both modes, both dtypes) and stream_probe against their plain
-            versions, sinks included, timed there.
+            perf_int8_floor, perf_floor2 at 2^24 rows, Q = 256, and
+            perf_floor2 at 500,096 rows, Q = 32): the read rate, the dot
+            alone and the dot with the reduce on phase A's walk, and phase
+            A's time split into the dot, the reduce, the scale/NEG_CAP/store
+            and the length channel; then mini_scan (both modes, both dtypes)
+            and stream_probe against their plain versions, sinks included,
+            timed there.
 8. variants phase A in slabs and the phase-C gather variants through their
             tools (tools/perf_slab_interleave at 2^24 rows, Q = 256, tiles
             8192/16384/32768, nslab 1/2/4/8; tools/perf_gather_int8 at 2^24 rows,
@@ -45,8 +48,9 @@ tools' synthetic DB); the kernel table takes the times and bounds of the
 probes and variants from their tools' rows and times only the plain
 versions and library calls itself.
 
-Prints one line per phase with its seconds, the nvidia-smi line, a JSON line
-{"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
+Prints one line per phase with its seconds, a JSON line of the tools'
+results, a JSON line {"phase_a_split": [...]}, the nvidia-smi line, a JSON
+line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
 files live in a temporary directory outside the checkout and are removed.
@@ -432,19 +436,23 @@ def tool_row(rows, **key):
 
 def probes_phase(dev, gen, flush, big):
     """The floor probes through their tools on the run's 2^24-row DBs (the
-    2 GiB int8 DB is stream_probe's buffer), then mini_scan (both modes,
-    both dtypes, tile 32768, nslab 4, Q = 256) and stream_probe against
-    their plain versions on the tools' inputs, sinks included. Kernel times
-    and bounds are the tools' rows; the plain versions and the library
-    yardstick are timed here."""
+    2 GiB int8 DB is stream_probe's buffer) and, for phase A's split at the
+    search shape, on a 500,096-row DB with Q = 32 (tile = the whole DB);
+    then mini_scan (both modes, both dtypes, tile 32768, nslab 4, Q = 256)
+    and stream_probe against their plain versions on the tools' inputs,
+    sinks included. Kernel times and bounds are the tools' rows; the plain
+    versions and the library yardstick are timed here."""
     from merizo_search_tpu_torch.ops import probes
     from merizo_search_tpu_torch.tools import perf_floor2, perf_hbm, perf_int8_floor
 
     reset_counts()                                   # the probes path starts here
     tools = {"perf_hbm": perf_hbm.main(["--iters", "5"], x=big["int8"][0]),
-             "perf_int8_floor": perf_int8_floor.main(["2", "4", "--iters", "3"], dbs=big),
+             "perf_int8_floor": perf_int8_floor.main(["4", "2", "--iters", "3"], dbs=big),
              "perf_floor2": perf_floor2.main(["--dtypes", "bf16", "--tiles", "32768,65536",
-                                              "--nslabs", "2,4", "--iters", "3"], dbs=big)}
+                                              "--nslabs", "4,2", "--iters", "3"], dbs=big),
+             "perf_floor2_search_shape": perf_floor2.main(
+                 ["--rows", "500096", "--q", "32", "--dtypes", "bf16,int8", "--tiles",
+                  "500096", "--nslabs", "1", "--k", "10", "--iters", "20"])}
     counts = launch_counts()
     for name in ("mini_scan", "stream_probe"):
         check(counts[name] > 0, f"the probes path never launched {name}")
@@ -487,7 +495,9 @@ def probes_phase(dev, gen, flush, big):
                                            3, flush),
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                        "torch_sum_ms": tool_row(hbm, tile=0)["ms"]})
-    return tools, counts, mini, stream
+    splits = [sp for t in tools.values() for sp in t.get("split", [])]
+    check(len(splits) == 4, f"expected phase A's split at 4 shapes, got {len(splits)}")
+    return tools, counts, mini, stream, splits
 
 
 def pad_rows(db, sc, rows):
@@ -770,10 +780,15 @@ def main():
                                 f"{r['seq_ms']:.3f} / pipelined {r['pipe_ms']:.3f} ms a batch")
 
         with Phase("probes") as ph:
-            probe_tools, probe_counts, mini_modes, stream_modes = probes_phase(dev, gen, flush,
-                                                                               big)
+            probe_tools, probe_counts, mini_modes, stream_modes, splits = probes_phase(
+                dev, gen, flush, big)
             best = probe_tools["perf_hbm"]["best"]
             ph.notes.append(f"best read {best['gbps']:.1f} GB/s ({best['probe']})")
+            for sp in splits:
+                ph.notes.append(f"phase A {sp['dtype']} N={sp['n']} Q={sp['q']}: dot "
+                                f"{sp['none_ms']:.4f} ms, reduce {sp['reduce_part_ms']:+.4f}, "
+                                f"store {sp['store_part_ms']:+.4f}, channel "
+                                f"{sp['channel_part_ms']:+.4f}")
 
         with Phase("variants") as ph:
             var_tools, var_counts, slab_modes, gvar_modes = variants_phase(dev, gen, flush, big)
@@ -812,7 +827,9 @@ def main():
                   yardstick="sequential_kernels_ms: phase A then phase C (int8: with the "
                             "carried block scales), two launches, same inputs; "
                             "fused_phase_a_only_ms: this kernel with an empty previous selection"),
-            entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu",
+            entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu (tensor cores: "
+                  "phase A's walk, csrc/blockmax.cuh walk_blocks, every score from "
+                  "csrc/scan_common.cuh mma_rows)",
                   "tools/perf_floor2.py:32", mini_modes,
                   {"dtype": "bf16", "mode": "reduce"}, probe_counts["mini_scan"],
                   also_replaces="tools/perf_int8_floor.py:37 (tile 32768, int8)"),
@@ -849,6 +866,7 @@ def main():
                           "path_launches": {"search": launches, "pipelined": pipe_counts,
                                             "probes": probe_counts, "variants": var_counts},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
+        print(json.dumps({"phase_a_split": splits}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,15 +7,21 @@
 // [s*tile, (s+1)*tile) of grid step s:
 //   reduce: out[s, q, j] = max over the 128 rows of block j of the step of
 //           score(q, row): phase A's block maxima with no mask, no scale and
-//           no NEG_CAP floor;
+//           no NEG_CAP floor (int8: the int32 max, written as float);
 //   none:   out[s, q, j], j < 8, = max over the step's slabs (tile/nslab rows
 //           each) of score(q, slab start + j): the small output that kept
 //           the dot alive on the TPU.
-// mini_scan keeps the CUDA-core dot that phase A had before phase A moved
-// to tensor cores (scan_common.cuh's mma_rows): dot_tile below, on rows
-// staged as f32 (bf16) or int32 words (int8), f32 fmaf chains for bf16 and
-// int32 __dp4a chains (written as f32) for int8. So it is no longer phase
-// A's dot; its readings stay comparable with earlier ones.
+// mini_scan runs phase A's walk (blockmax.cuh `walk_blocks`: the same CTA
+// shape, query tile, resident grid, cp.async ring and scan_common.cuh's
+// tensor-core `mma_rows` for every score), so mini_scan "none", mini_scan
+// "reduce" and blockmax_scan differ only in the per-block epilogue, and
+// their differences split phase A's time: the dot, the block-max reduce,
+// and the scale, NEG_CAP floor and store. "reduce" runs phase A's own
+// epilogue (BlockMaxEpi) with a raw store at out[b / nbt, q, b % nbt].
+// "none" keeps one running max an accumulator element for the sink, in
+// registers for the whole walk, and sends the scores of rows 0..7 of each
+// slab-start block, from the warp that multiplies its m-tile 0, to their
+// step's output by atomicMax (HeadsEpi).
 //
 // stream_probe replaces `_probe_kernel` of tools/perf_hbm.py: for x int8
 // [n, d], o[r, c] = i + sum over steps s of x[s*tile + r, c] as f32, r < 8.
@@ -29,116 +35,27 @@
 //
 // Bounds on the H100: mini_scan reads the DB once (4 GiB of bf16 at 2^24
 // rows: 1.28 ms at 3.35 TB/s) and does 2*Q*N*128 operations (1.11 ms at
-// Q = 256 at the bf16 tensor-core peak); it computes on CUDA cores, so FMA
-// throughput bounds it. stream_probe is bound by one read of x.
-// Design: mini_scan runs the CUDA-core phase A's CTA shape (64 queries against a chunk of
-// blocks inside one step; a 4x8 register tile a lane) with the mode's
-// epilogue; in `none` mode the CTAs of one step meet through atomicMax on an
-// order-preserving integer image of the float. stream_probe gives each tile
-// to one CTA, as the TPU gave each tile one grid step: 512 threads read it
-// with 16-byte loads, four in flight a thread, so the sweep over `tile`
-// shows how the read rate depends on the work a CTA is given.
+// Q = 256 at the 989 TFLOP/s bf16 peak; half that in int8 at 1,979 TOP/s),
+// so bytes bound it. It issues the dot as phase A does, by mma.sync, which
+// does not reach the dense peak (that takes wgmma): its time beside phase
+// A's, not beside the bound, is what the probe is for. stream_probe is
+// bound by one read of x.
+// Design: a CTA's range of blocks may span steps (phase A's geometry is
+// blind to them). "reduce" stores by block and needs nothing for that; in
+// "none" a step's heads meet through atomicMax on an order-preserving
+// integer image of the float, one atomic a head score (nslab blocks a step),
+// so no head is held in registers across blocks.
+// stream_probe gives each tile to one CTA, as the TPU gave each tile one
+// grid step: 512 threads read it with 16-byte loads, four in flight a
+// thread, so the sweep over `tile` shows how the read rate depends on the
+// work a CTA is given.
+#include <climits>
+
 #include "blockmax.cuh"
 
 namespace mst {
 
 constexpr int STHREADS = 512;
-constexpr int QT = 64;   // queries per mini_scan CTA
-constexpr int RPT = 4;   // rows per lane
-constexpr int QPW = 8;   // queries per warp
-
-// How mini_scan stages and multiplies rows of T on CUDA cores.
-template <class T>
-struct Cc;
-
-template <>
-struct Cc<Bf16> {
-  using In = Bf16::In;
-  using Word = float;
-  using Vec = float4;
-  using Acc = float;
-  static constexpr bool IS_INT = false;
-  static constexpr int WORDS = DIM;          // staged words per row
-  static constexpr int WPC = 8;              // words per 16-byte chunk
-  static constexpr int PITCH = WORDS + 4;    // smem row pitch (words)
-  __device__ static __forceinline__ Acc mac(Acc acc, Word a, Word b) {
-    return fmaf(a, b, acc);
-  }
-  __device__ static __forceinline__ void unpack(uint4 v, Word* dst) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-    float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
-  }
-};
-
-template <>
-struct Cc<Int8> {
-  using In = Int8::In;
-  using Word = int;
-  using Vec = int4;
-  using Acc = int;
-  static constexpr bool IS_INT = true;
-  static constexpr int WORDS = DIM / 4;
-  static constexpr int WPC = 4;
-  static constexpr int PITCH = WORDS + 4;
-  __device__ static __forceinline__ Acc mac(Acc acc, Word a, Word b) {
-    return __dp4a(a, b, acc);
-  }
-  __device__ static __forceinline__ void unpack(uint4 v, Word* dst) {
-    *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(&v);
-  }
-};
-
-// Stage `nrows` rows of a row-major [*, DIM] array, starting at row `row0`,
-// into shared memory with pitch C::PITCH. Rows at or past `row_end` are
-// zero-filled. Global reads are 16-byte loads, consecutive threads on
-// consecutive addresses.
-template <class C>
-__device__ __forceinline__ void stage_rows(const typename C::In* __restrict__ src,
-                                           long long row0, long long row_end,
-                                           int nrows, typename C::Word* dst) {
-  constexpr int CPR = DIM * (int)sizeof(typename C::In) / 16;  // chunks per row
-  for (int c = threadIdx.x; c < nrows * CPR; c += blockDim.x) {
-    const int r = c / CPR, k = c % CPR;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < row_end)
-      v = reinterpret_cast<const uint4*>(src + (row0 + r) * DIM)[k];
-    C::unpack(v, dst + r * C::PITCH + k * C::WPC);
-  }
-}
-
-// acc[r][c] = sum over words w of x[r][w] * q[c][w], accumulated in word
-// order by C::mac.
-template <class C, int R, int N>
-__device__ __forceinline__ void dot_tile(typename C::Acc (&acc)[R][N],
-                                         const typename C::Word* const (&x)[R],
-                                         const typename C::Word* const (&q)[N]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < N; ++c) acc[r][c] = 0;
-#pragma unroll 1
-  for (int w = 0; w < C::WORDS; w += 4) {
-    typename C::Vec xv[R], qv[N];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      xv[r] = *reinterpret_cast<const typename C::Vec*>(x[r] + w);
-#pragma unroll
-    for (int c = 0; c < N; ++c)
-      qv[c] = *reinterpret_cast<const typename C::Vec*>(q[c] + w);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < N; ++c) {
-        acc[r][c] = C::mac(acc[r][c], qv[c].x, xv[r].x);
-        acc[r][c] = C::mac(acc[r][c], qv[c].y, xv[r].y);
-        acc[r][c] = C::mac(acc[r][c], qv[c].z, xv[r].z);
-        acc[r][c] = C::mac(acc[r][c], qv[c].w, xv[r].w);
-      }
-  }
-}
 
 // Signed integers in the order of the floats they stand for, so atomicMax
 // on them is a max of the floats (no NaN here).
@@ -147,84 +64,115 @@ __device__ __forceinline__ int order_key(float f) {
   return i >= 0 ? i : i ^ 0x7fffffff;
 }
 
+// mini_scan "reduce"'s store: the raw block max at out[b / nbt, qi, b % nbt];
+// keeps the max of what the thread stored (its part of the sink).
 template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
+struct RawStore {
+  float* __restrict__ out;
+  int nq, nbt;
+  float pmax = -INFINITY;
+  __device__ __forceinline__ RawStore(float* o, int nq_, int nbt_) : out(o), nq(nq_), nbt(nbt_) {}
+  __device__ __forceinline__ void put(int b, int qi, typename T::Acc m) {
+    const float v = (float)m;
+    out[((long long)(b / nbt) * nq + qi) * nbt + b % nbt] = v;
+    pmax = fmaxf(pmax, v);
+  }
+};
+
+// mini_scan "none"'s epilogue. run: the max of every score of the thread's
+// columns (one max an accumulator element, in registers for the whole walk;
+// the sink). In the warp that multiplies m-tile 0 of a block that starts a
+// slab, the scores of the block's rows 0..7 (M slot g: acc[j][0..1],
+// columns tig*2 + 0..1 of n-tile j) go straight to keys [nsteps, nq, 8] by
+// atomicMax, into the block's own step: no head is held across blocks, so
+// a CTA's range may span steps.
+template <class T>
+struct HeadsEpi {
+  using Acc = typename T::Acc;
+  const WalkPos& p;
+  int* __restrict__ keys;
+  int nq, nbt, slab_blocks;
+  int head_step;     // the current block's step if it starts a slab, else -1
+  Acc run[4][2];
+
+  __device__ __forceinline__ HeadsEpi(const WalkPos& pos, int* k, int nq_, int nbt_, int sb)
+      : p(pos), keys(k), nq(nq_), nbt(nbt_), slab_blocks(sb), head_step(-1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (T::IS_INT) run[j][0] = run[j][1] = INT_MASKED;
+      else run[j][0] = run[j][1] = -INFINITY;
+    }
+  }
+
+  __device__ __forceinline__ void begin_block(int b) {
+    head_step = b % slab_blocks == 0 ? b / nbt : -1;
+  }
+
+  __device__ __forceinline__ void tile(int mt, const Acc (&acc)[4][4], const unsigned char*) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if constexpr (T::IS_INT) run[j][c] = max(run[j][c], max(acc[j][c], acc[j][2 + c]));
+        else run[j][c] = fmaxf(run[j][c], fmaxf(acc[j][c], acc[j][2 + c]));
+      }
+    if (mt == 0 && head_step >= 0)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = p.qbase + j * 8 + p.tig * 2 + c;
+          if (qi < nq)
+            atomicMax(keys + ((long long)head_step * nq + qi) * 8 + p.g,
+                      order_key((float)acc[j][c]));
+        }
+  }
+
+  __device__ __forceinline__ void end_block(int) {}
+  __device__ __forceinline__ void after_block(int, int) {}
+
+  // the thread's part of the sink: queries past nq (zero fragments) stay out
+  __device__ __forceinline__ float best() const {
+    float v = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (p.qbase + j * 8 + p.tig * 2 + c < nq) v = fmaxf(v, (float)run[j][c]);
+    return v;
+  }
+};
+
+// One CTA of phase A's grid (blockmax.cu's geometry: query tiles x chunks
+// of blocks_per_cta blocks over the nb = nsteps * nbt blocks).
+template <class T, bool REDUCE>
+__global__ void __launch_bounds__(THREADS, T::CTAS)
 mini_scan_kernel(const typename T::In* __restrict__ q,
                  const typename T::In* __restrict__ db, float* __restrict__ out,
-                 float* __restrict__ sink, int nq, int nbt, int chunk,
-                 int slab_blocks, int reduce) {
-  using Word = typename T::Word;
-  using Acc = typename T::Acc;
+                 float* __restrict__ sink, int nq, int nb, int nbt, int slab_blocks,
+                 int qgroups, int blocks_per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Word* qs = reinterpret_cast<Word*>(smem);  // [QT][PITCH]
-  Word* xs = qs + QT * T::PITCH;             // [BLOCK][PITCH]
   __shared__ float warp_best[THREADS / 32];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * QT;
-  stage_rows<T>(q, q0, nq, QT, qs);
-  const Word* const xr[RPT] = {xs + lane * T::PITCH, xs + (lane + 32) * T::PITCH,
-                               xs + (lane + 64) * T::PITCH,
-                               xs + (lane + 96) * T::PITCH};
-  const Word* const qr[QPW] = {
-      qs + (warp * QPW + 0) * T::PITCH, qs + (warp * QPW + 1) * T::PITCH,
-      qs + (warp * QPW + 2) * T::PITCH, qs + (warp * QPW + 3) * T::PITCH,
-      qs + (warp * QPW + 4) * T::PITCH, qs + (warp * QPW + 5) * T::PITCH,
-      qs + (warp * QPW + 6) * T::PITCH, qs + (warp * QPW + 7) * T::PITCH};
-
-  const long long b_begin = (long long)blockIdx.y * chunk;
-  const long long step = b_begin / nbt;
-  Acc best;
-  if constexpr (T::IS_INT) best = INT_MASKED; else best = -INFINITY;
-  float head[QPW];
-#pragma unroll
-  for (int c = 0; c < QPW; ++c) head[c] = -INFINITY;
-
-  for (long long b = b_begin; b < b_begin + chunk; ++b) {
-    __syncthreads();  // the previous block's rows are no longer read
-    stage_rows<T>(db, b * BLOCK, (b + 1) * BLOCK, BLOCK, xs);
-    __syncthreads();
-
-    Acc acc[RPT][QPW];
-    dot_tile<T, RPT, QPW>(acc, xr, qr);
-    const int bi = (int)(b - step * nbt);  // block within the step
-#pragma unroll
-    for (int c = 0; c < QPW; ++c) {
-      Acc m = acc[0][c];
-#pragma unroll
-      for (int r = 1; r < RPT; ++r) m = max(m, acc[r][c]);
-      const int qi = q0 + warp * QPW + c;
-      if (qi < nq) best = max(best, m);  // zero-filled query rows stay out
-      if (reduce) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (lane == 0 && qi < nq)
-          out[(step * nq + qi) * nbt + bi] = (float)m;
-      } else if (bi % slab_blocks == 0) {
-        head[c] = fmaxf(head[c], (float)acc[0][c]);  // rows 0..7: lanes 0..7
-      }
-    }
+  const WalkPos p(nq, nb, qgroups, blocks_per_cta, blockIdx.x, blockIdx.y);
+  float best;
+  if constexpr (REDUCE) {
+    RawStore<T> store(out, nq, nbt);
+    BlockMaxEpi<T, false, RawStore<T>> epi(p, store, smem, nullptr, nq);
+    walk_blocks<T, false>(smem, p, q, db, nullptr, nq, epi);
+    best = store.pmax;
+  } else {
+    HeadsEpi<T> epi(p, reinterpret_cast<int*>(out), nq, nbt, slab_blocks);
+    walk_blocks<T, false>(smem, p, q, db, nullptr, nq, epi);
+    best = epi.best();
   }
-
-  if (!reduce && lane < 8) {
-#pragma unroll
-    for (int c = 0; c < QPW; ++c) {
-      const int qi = q0 + warp * QPW + c;
-      if (qi < nq)
-        atomicMax(reinterpret_cast<int*>(out) + (step * nq + qi) * 8 + lane,
-                  order_key(head[c]));
-    }
-  }
-  float fb = (float)best;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    fb = fmaxf(fb, __shfl_xor_sync(0xffffffffu, fb, off));
-  if (lane == 0) warp_best[warp] = fb;
+    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < THREADS / 32; ++w) fb = fmaxf(fb, warp_best[w]);
-    sink[(long long)blockIdx.y * gridDim.x + blockIdx.x] = fb;
+    for (int w = 1; w < THREADS / 32; ++w) best = fmaxf(best, warp_best[w]);
+    sink[(long long)blockIdx.y * gridDim.x + blockIdx.x] = best;
   }
 }
 
@@ -259,38 +207,55 @@ stream_probe_kernel(const int8_t* __restrict__ x, float* __restrict__ o,
   }
 }
 
-template <class T>
-cudaError_t launch_mini_scan(const void* q, const void* db, float* out,
-                             float* sink, int nq, int nsteps, int nbt, int chunk,
-                             int slab_blocks, int reduce, cudaStream_t stream) {
-  using C = Cc<T>;
-  const size_t smem = (size_t)(QT + BLOCK) * C::PITCH * sizeof(typename C::Word);
-  cudaError_t err = allow_smem(mini_scan_kernel<C>, smem);
+template <class T, bool REDUCE>
+cudaError_t launch_mini(const void* q, const void* db, float* out, float* sink, int nq,
+                        int nb, int nbt, int slab_blocks, int qgroups, int blocks_per_cta,
+                        cudaStream_t stream) {
+  const size_t smem = blockmax_smem<T>();
+  cudaError_t err = allow_smem(mini_scan_kernel<T, REDUCE>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((nq + QT - 1) / QT, (unsigned)((long long)nsteps * nbt / chunk));
-  mini_scan_kernel<C><<<grid, THREADS, smem, stream>>>(
-      static_cast<const typename T::In*>(q), static_cast<const typename T::In*>(db),
-      out, sink, nq, nbt, chunk, slab_blocks, reduce);
+  const int qt = QG * qgroups;
+  dim3 grid((nq + qt - 1) / qt, (nb + blocks_per_cta - 1) / blocks_per_cta);
+  mini_scan_kernel<T, REDUCE><<<grid, THREADS, smem, stream>>>(
+      static_cast<const typename T::In*>(q), static_cast<const typename T::In*>(db), out,
+      sink, nq, nb, nbt, slab_blocks, qgroups, blocks_per_cta);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_mini_scan(const void* q, const void* db, float* out, float* sink, int nq,
+                             int nsteps, int nbt, int slab_blocks, int reduce, int qgroups,
+                             int blocks_per_cta, cudaStream_t s) {
+  if (qgroups != 1 && qgroups != 2 && qgroups != 4 && qgroups != 8)
+    return cudaErrorInvalidValue;
+  const long long nb = (long long)nsteps * nbt;
+  if (nbt < 1 || slab_blocks < 1 || nbt % slab_blocks || blocks_per_cta < 1 || nb > INT_MAX)
+    return cudaErrorInvalidValue;
+  if (reduce)
+    return launch_mini<T, true>(q, db, out, sink, nq, (int)nb, nbt, slab_blocks, qgroups,
+                                blocks_per_cta, s);
+  return launch_mini<T, false>(q, db, out, sink, nq, (int)nb, nbt, slab_blocks, qgroups,
+                               blocks_per_cta, s);
 }
 
 }  // namespace mst
 
 // dtype: 0 = bf16, 1 = int8. out: [nsteps, nq, nbt] (reduce) or int32 keys
 // [nsteps, nq, 8] preset to the key of -inf (none). sink: one float a CTA,
-// [nsteps*nbt/chunk, ceil(nq/64)]. chunk divides nbt; slab_blocks divides nbt.
+// [ceil(nb / blocks_per_cta), ceil(nq / (32 * qgroups))] for nb = nsteps *
+// nbt. slab_blocks divides nbt; qgroups is 1, 2, 4 or 8.
 extern "C" int mst_mini_scan(int dtype, const void* q, const void* db, void* out,
-                             void* sink, int nq, int nsteps, int nbt, int chunk,
-                             int slab_blocks, int reduce, void* stream) {
+                             void* sink, int nq, int nsteps, int nbt, int slab_blocks,
+                             int reduce, int qgroups, int blocks_per_cta, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<float*>(out);
   auto k = static_cast<float*>(sink);
   if (dtype == 0)
-    return mst::launch_mini_scan<mst::Bf16>(q, db, o, k, nq, nsteps, nbt, chunk,
-                                            slab_blocks, reduce, s);
+    return mst::launch_mini_scan<mst::Bf16>(q, db, o, k, nq, nsteps, nbt, slab_blocks,
+                                            reduce, qgroups, blocks_per_cta, s);
   if (dtype == 1)
-    return mst::launch_mini_scan<mst::Int8>(q, db, o, k, nq, nsteps, nbt, chunk,
-                                            slab_blocks, reduce, s);
+    return mst::launch_mini_scan<mst::Int8>(q, db, o, k, nq, nsteps, nbt, slab_blocks,
+                                            reduce, qgroups, blocks_per_cta, s);
   return cudaErrorInvalidValue;
 }
 

@@ -94,7 +94,7 @@ def library() -> ctypes.CDLL:
                                       vp, vp, vp, ci, ci, vp]
         lib.mst_mini_scan.restype = ci
         lib.mst_mini_scan.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                      vp]
+                                      ci, vp]
         lib.mst_stream_probe.restype = ci
         lib.mst_stream_probe.argtypes = [vp, vp, vp, ci, ll, ci, vp]
         lib.mst_slab_scan.restype = ci

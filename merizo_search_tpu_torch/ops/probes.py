@@ -7,6 +7,9 @@ probes of the JAX package's measurement tools: `_mini_kernel` of
 tools/perf_floor2.py and tools/perf_int8_floor.py (one function here, whose
 `tile` defaults to the latter's fixed 32768) and `_probe_kernel` of
 tools/perf_hbm.py. The tools in `merizo_search_tpu_torch.tools` run them.
+mini_scan's kernel runs phase A's tensor-core walk at phase A's launch
+geometry (`geometry`), so its two modes and `blockmax_scan` differ only in
+what each does per block once the scores exist.
 
 Both return a sink beside their output: a value that depends on all of the
 probe's work, so that a GPU kernel (where a dot whose result is unused is
@@ -17,11 +20,9 @@ XOR of every 32-bit word read.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from .blockmax import _DTYPE_CODE
+from .blockmax import _DTYPE_CODE, CTAS_PER_SM, QUERY_GROUP, phase_a_geometry
 from .topk import BLOCK
 
 TILE = 32768         # perf_int8_floor's fixed tile (the JAX DEFAULT_TILE)
@@ -31,12 +32,18 @@ PLAIN_STEPS = 1 << 20   # DB rows per piece of mini_scan_plain
 launches = {"mini_scan": 0, "stream_probe": 0}   # since the last reset
 
 
-def blocks_per_cta(nq: int, nb: int) -> int:
-    """DB blocks each mini_scan CTA walks (phase A's rule before phase A
-    moved to tensor cores): enough CTAs for several waves on 132 SMs, and
-    few enough query-tile re-stagings."""
-    ntiles = -(-nq // 64)
-    return max(1, min(16, nb * ntiles // 2048))
+def geometry(nq: int, nsteps: int, nbt: int, sms: int, ctas_per_sm: int):
+    """(qgroups, blocks_per_cta, chunks) of a mini_scan launch: phase A's
+    (`phase_a_geometry`) over the nsteps * nbt blocks, so mini_scan walks
+    as phase A does: query tiles of 32 * qgroups queries and a grid of
+    query tiles x chunks resident at once, each CTA a contiguous range of
+    blocks_per_cta blocks. The ranges ignore the steps: one may span two or
+    more. "reduce" stores each block's maxima at its own step, and "none"
+    sends each slab-start block's head scores to its own step by
+    atomicMax, so neither holds anything across a step boundary."""
+    nb = nsteps * nbt
+    qg, bpc = phase_a_geometry(nq, nb, sms, ctas_per_sm)
+    return qg, bpc, -(-nb // bpc)
 
 
 def _validate_mini(q, db, tile, nslab, reduce_mode):
@@ -81,6 +88,40 @@ def _key_to_float(keys):
     return torch.where(keys >= 0, keys, keys ^ 0x7FFFFFFF).view(torch.float32)
 
 
+def _kernel_call(q, db, tile, nslab, reduce_mode):
+    """(out, parts, launch) for CUDA tensors: the kernel's outputs ("none":
+    int32 keys preset to -inf's), one sink value a CTA, and a callable that
+    launches the kernel into them (None for an empty batch)."""
+    from . import _build
+
+    if db.dtype not in _DTYPE_CODE:
+        raise TypeError(f"mini_scan kernel takes bf16 or int8, got {db.dtype}")
+    dev = q.device
+    nq, nsteps, nbt = q.shape[0], db.shape[0] // tile, tile // BLOCK
+    args = [_build.ptr(q, "q", db.dtype, device=dev),
+            _build.ptr(db, "db", db.dtype, device=dev)]
+    if reduce_mode == "reduce":
+        out = torch.empty((nsteps, nq, nbt), dtype=torch.float32, device=dev)
+    else:   # int32 keys of -inf (0xff800000 ^ 0x7fffffff), raised by atomicMax
+        out = torch.full((nsteps, nq, 8), -2139095041, dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out, torch.full((1,), float("-inf"), device=dev), None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qg, bpc, chunks = geometry(nq, nsteps, nbt, sms, CTAS_PER_SM[db.dtype])
+    parts = torch.empty((chunks, -(-nq // (QUERY_GROUP * qg))), dtype=torch.float32,
+                        device=dev)
+    lib, stream = _build.library(), torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.mst_mini_scan(_DTYPE_CODE[db.dtype], *args, out.data_ptr(), parts.data_ptr(),
+                               nq, nsteps, nbt, (tile // nslab) // BLOCK,
+                               int(reduce_mode == "reduce"), qg, bpc, stream)
+        _build.check_launch(rc, "mini_scan")
+        launches["mini_scan"] += 1
+
+    return out, parts, launch
+
+
 def mini_scan(q, db, tile: int = TILE, nslab: int = 1, reduce_mode: str = "reduce"):
     """The scan's floor probe: (out, sink) for q [Q, 128] and db [N, 128]
     of one dtype (bf16 or int8), over nsteps = N // tile steps.
@@ -94,34 +135,25 @@ def mini_scan(q, db, tile: int = TILE, nslab: int = 1, reduce_mode: str = "reduc
     _validate_mini(q, db, tile, nslab, reduce_mode)
     if q.device.type == "cpu":
         return mini_scan_plain(q, db, tile, nslab, reduce_mode)
-    from . import _build
-
-    if db.dtype not in _DTYPE_CODE:
-        raise TypeError(f"mini_scan kernel takes bf16 or int8, got {db.dtype}")
-    dev = q.device
-    nq, nsteps, nbt = q.shape[0], db.shape[0] // tile, tile // BLOCK
-    chunk = math.gcd(nbt, blocks_per_cta(nq, nsteps * nbt))
-    qtiles, chunks = -(-nq // 64), nsteps * nbt // chunk
-    if chunks > 65535:
-        raise ValueError(f"mini_scan: {chunks} block chunks exceed the grid's y limit")
-    args = [_build.ptr(q, "q", db.dtype, device=dev),
-            _build.ptr(db, "db", db.dtype, device=dev)]
-    if reduce_mode == "reduce":
-        out = torch.empty((nsteps, nq, nbt), dtype=torch.float32, device=dev)
-    else:   # int32 keys of -inf (0xff800000 ^ 0x7fffffff), raised by atomicMax
-        out = torch.full((nsteps, nq, 8), -2139095041, dtype=torch.int32, device=dev)
-    parts = torch.empty((chunks, qtiles), dtype=torch.float32, device=dev)
-    if nq == 0:
-        return out.view(torch.float32), parts.new_full((), float("-inf"))
-    rc = _build.library().mst_mini_scan(
-        _DTYPE_CODE[db.dtype], *args, out.data_ptr(), parts.data_ptr(), nq, nsteps,
-        nbt, chunk, (tile // nslab) // BLOCK, int(reduce_mode == "reduce"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "mini_scan")
-    launches["mini_scan"] += 1
+    out, parts, launch = _kernel_call(q, db, tile, nslab, reduce_mode)
+    if launch is not None:
+        launch()
     if reduce_mode == "none":
         out = _key_to_float(out)
     return out, parts.max()
+
+
+def kernel_alone(q, db, tile: int = TILE, nslab: int = 1, reduce_mode: str = "reduce"):
+    """A callable that runs mini_scan's kernel alone, into outputs allocated
+    (and preset) here once, for timing the kernel without the wrapper's
+    preset, key conversion and sink fold: a few small launches that weigh
+    at the search shape (0.06 ms) though not at 2^24 rows. What it writes is
+    not meant to be read. CPU tensors: the plain version."""
+    _validate_mini(q, db, tile, nslab, reduce_mode)
+    if q.device.type == "cpu":
+        return lambda: mini_scan_plain(q, db, tile, nslab, reduce_mode)
+    launch = _kernel_call(q, db, tile, nslab, reduce_mode)[2]
+    return launch if launch is not None else (lambda: None)
 
 
 def _validate_stream(x, tile):

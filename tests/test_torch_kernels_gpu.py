@@ -167,12 +167,26 @@ def test_pipelined_equals_sequential_on_card(cuda, data, dtype):
         assert torch.equal(v, sv) and torch.equal(i, si)
 
 
+def _check_mini(got, sink, want, wsink, dtype):
+    assert got.shape == want.shape
+    got, want = got.cpu(), want.cpu()
+    if dtype == "int8":
+        assert torch.equal(got, want) and sink.item() == wsink.item()
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+        assert abs(sink.item() - wsink.item()) <= 1e-5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("mode", ["none", "reduce"])
 @pytest.mark.parametrize("tile, nslab", [(1024, 2), (32768, 4)])
-def test_mini_scan_kernel_matches_plain(cuda, data, dtype, mode, tile, nslab):
+@pytest.mark.parametrize("nq", [70, 40, 300])
+def test_mini_scan_kernel_matches_plain(cuda, data, dtype, mode, tile, nslab, nq):
+    """Batches that are not multiples of 32 (query tiles of 128, 64 and 256
+    with a ragged last one); the 300 queries repeat the data's 70."""
     q, db, _ = data[dtype]
+    q = q.repeat(5, 1)[:nq].contiguous()
     if tile > db.shape[0]:       # the fixed tile: two copies of the DB make a step
         db = torch.cat([db, db])[:tile]
     n0 = probes.launches["mini_scan"]
@@ -180,13 +194,51 @@ def test_mini_scan_kernel_matches_plain(cuda, data, dtype, mode, tile, nslab):
     torch.cuda.synchronize()
     assert probes.launches["mini_scan"] == n0 + 1
     want, wsink = probes.mini_scan(q, db, tile, nslab, mode)
-    assert got.shape == want.shape
-    got = got.cpu()
-    if dtype == "int8":
-        assert torch.equal(got, want) and sink.item() == wsink.item()
-    else:
-        assert (got - want).abs().max().item() <= 1e-5
-        assert abs(sink.item() - wsink.item()) <= 1e-5
+    _check_mini(got, sink, want, wsink, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["none", "reduce"])
+def test_mini_scan_kernel_alone_launches_the_kernel(cuda, data, mode):
+    """The timing helper launches the kernel and nothing that raises."""
+    q, db, _ = _on(cuda, *data["bf16"][:2], None)
+    run = probes.kernel_alone(q, db[:16384], 1024, 2, mode)
+    n0 = probes.launches["mini_scan"]
+    run()
+    run()
+    torch.cuda.synchronize()
+    assert probes.launches["mini_scan"] == n0 + 2
+
+
+def _steps_for_span(nq, dtype, span):
+    """The fewest steps of tile 1024 (8 blocks) at which one of the card's
+    mini_scan CTA ranges touches `span` steps."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = blockmax.CTAS_PER_SM[torch.int8 if dtype == "int8" else torch.bfloat16]
+    for nsteps in range(2, 4096):
+        _, bpc, _ = probes.geometry(nq, nsteps, 8, sms, ctas)
+        nb = nsteps * 8
+        if max((min(nb, b0 + bpc) - 1) // 8 - b0 // 8 + 1 for b0 in range(0, nb, bpc)) >= span:
+            return nsteps
+    raise AssertionError(f"no DB size gives a range over {span} steps")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["none", "reduce"])
+@pytest.mark.parametrize("nq, span", [(40, 2), (300, 2), (40, 3)])
+def test_mini_scan_kernel_ranges_across_steps(cuda, data, dtype, mode, nq, span):
+    """Tile 1024, nslab 2, with the DB sized so that CTA ranges touch `span`
+    steps of 8 blocks (a range's "none" heads go to several steps); the
+    plain version runs on the card (float64)."""
+    q, db, _ = data[dtype]
+    nsteps = _steps_for_span(nq, dtype, span)
+    q = q.repeat(5, 1)[:nq].contiguous().to(cuda)
+    db = db.to(cuda).repeat(-(-nsteps * 1024 // db.shape[0]), 1)[:nsteps * 1024].contiguous()
+    got, sink = probes.mini_scan(q, db, 1024, 2, mode)
+    torch.cuda.synchronize()
+    want, wsink = probes.mini_scan_plain(q, db, 1024, 2, mode)
+    _check_mini(got, sink, want, wsink, dtype)
 
 
 @pytest.mark.gpu

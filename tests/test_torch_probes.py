@@ -121,6 +121,102 @@ def test_mini_scan_none_mode_keeps_slab_heads():
     np.testing.assert_array_equal(got.numpy(), s.transpose(1, 0, 2))
 
 
+def _spans(nb, nbt, bpc):
+    """The number of steps (nbt blocks each) that each CTA range of bpc
+    blocks touches."""
+    return [(min(nb, b0 + bpc) - 1) // nbt - b0 // nbt + 1 for b0 in range(0, nb, bpc)]
+
+
+@pytest.mark.parametrize("nq, nsteps, nbt, qgroups, qtiles", [
+    (40, 512, 256, 2, 1),        # 2^24 rows, tile 32768
+    (300, 512, 256, 8, 2),
+    (256, 512, 256, 8, 1),
+    (32, 1, 3907, 1, 1),         # 500,096 rows as one step
+    (70, 19, 8, 4, 1),           # tile 1024
+    (300, 40, 8, 8, 2),
+])
+@pytest.mark.parametrize("ctas", [2, 3])
+def test_mini_scan_geometry_is_phase_a_geometry(nq, nsteps, nbt, qgroups, qtiles, ctas):
+    """mini_scan launches as phase A does over nsteps * nbt blocks: query
+    tiles of 32 * qgroups queries (Q not a multiple of 32 rounds up), each
+    block in exactly one CTA range, the grid resident at once on 132 SMs."""
+    from merizo_search_tpu_torch.ops.blockmax import phase_a_geometry
+
+    nb = nsteps * nbt
+    qg, bpc, chunks = probes.geometry(nq, nsteps, nbt, 132, ctas)
+    assert (qg, bpc) == phase_a_geometry(nq, nb, 132, ctas)
+    assert qg == qgroups and -(-nq // (32 * qg)) == qtiles
+    assert (chunks - 1) * bpc < nb <= chunks * bpc
+    assert qtiles * chunks <= 132 * ctas
+
+
+def test_mini_scan_ranges_span_steps_at_the_probe_shape():
+    """At 2^24 rows, tile 32768, Q 256 the ranges ignore the 256-block
+    steps: a bf16 CTA walks 497 blocks, touching 2 or 3 steps, so the
+    "none" heads one CTA sends belong to several steps."""
+    nb, nbt = 512 * 256, 256
+    _, bpc, chunks = probes.geometry(256, 512, nbt, 132, 2)
+    assert bpc == 497 and chunks == 264
+    assert set(_spans(nb, nbt, bpc)) == {2, 3}
+    _, bpc8, _ = probes.geometry(256, 512, nbt, 132, 3)     # int8: 3 CTAs an SM
+    assert bpc8 == 331 and max(_spans(nb, nbt, bpc8)) == 3
+
+
+def _walk_heads(scores, tile, nslab, bpc):
+    """The "none" output as the kernel's walk builds it: each CTA range
+    takes its blocks in order, and each block that starts a slab sends its
+    rows 0..7 to its own step's output by a max (the kernel's atomicMax),
+    whatever step the range began in. scores [Q, N]; returns
+    [nsteps, Q, 8]."""
+    nq, n = scores.shape
+    nbt, slab_blocks = tile // 128, tile // nslab // 128
+    nb = n // tile * nbt
+    out = np.full((n // tile, nq, 8), -np.inf, np.float32)
+    for b0 in range(0, nb, bpc):
+        for b in range(b0, min(nb, b0 + bpc)):
+            if b % slab_blocks == 0:
+                out[b // nbt] = np.maximum(out[b // nbt], scores[:, b * 128:b * 128 + 8])
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("sms", [3, 1])
+def test_mini_scan_none_heads_across_steps_match_jax(dtype, sms):
+    """Q = 40, tile 1024 (8 blocks a step), nslab 2, five steps, on a card
+    of `sms` SMs: CTA ranges of 7 (3 SMs) or 20 blocks (1 SM) span two or
+    more steps. The heads as the walk meets them, block by block into each
+    block's own step, equal the JAX mini_scan in interpret mode, and so does
+    the port's mini_scan."""
+    q, db = _data(dtype, 5 * 1024, q=40, seed=5)
+    _, bpc, _ = probes.geometry(40, 5, 8, sms, 2)
+    assert max(_spans(40, 8, bpc)) >= 2
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_floor2.mini_scan(jnp.asarray(q), jnp.asarray(db), 1024, 2, "none"))
+    _check(_walk_heads(_numpy_scores(q, db), 1024, 2, bpc), want, _numpy_scores(q, db).max(),
+           q, db, dtype)
+    got, sink = probes.mini_scan(_torch(q), _torch(db), 1024, 2, "none")
+    _check(got.numpy(), want, sink, q, db, dtype)
+
+
+@pytest.mark.parametrize("mode", ["none", "reduce"])
+def test_mini_scan_odd_batch_matches_numpy(mode):
+    """Q = 300 (two query tiles of 256 on the card, the second ragged) at
+    tile 1024: the port against numpy scores (the JAX tool's query tile of
+    128 leaves the last 44 queries of such a batch unwritten)."""
+    q, db = _data("int8", 6 * 1024, q=300, seed=6)
+    got, sink = probes.mini_scan(_torch(q), _torch(db), 1024, 4, mode)
+    s = _numpy_scores(q, db)
+    if mode == "reduce":
+        want = s.reshape(300, 6, 8, 128).max(axis=3).transpose(1, 0, 2)
+    else:
+        _, bpc, _ = probes.geometry(300, 6, 8, 132, 3)
+        want = _walk_heads(s, 1024, 4, bpc)
+        np.testing.assert_array_equal(
+            want, s.reshape(300, 6, 4, 256)[..., :8].max(axis=2).transpose(1, 0, 2))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert float(sink) == s.max()
+
+
 @pytest.mark.parametrize("d, tile", [(128, 1024), (128, 4096), (1024, 512)])
 def test_stream_probe_matches_jax(d, tile):
     rng = np.random.default_rng(d + tile)
