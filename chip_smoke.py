@@ -40,8 +40,29 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             channel off for every nslab; then
             slab_scan and every gather mode against their plain versions,
             sinks included, at N = 500,000 and at 2^24 rows.
+9. createdb the `createdb` CLI on the card (default weights) over 2,068
+            synthetic CA PDBs: 2,048 of 50-400 residues, 16 of 410-710
+            and four over 2,000 (truncated to 2,000): an mmap DB with an
+            int8 sidecar, built by one run interrupted after two chunks of
+            512 files (`run_createdb`, the CLI's call, with checkpoints every
+            512 files) and one `createdb --resume`; `dbinfo --verify --sample 0`; 32
+            sampled entries' embeddings against the port's CPU embedding
+            (1e-4); the 16 of 410-710 residues searched by the `search` CLI
+            at bf16 and int8, each its own rank-1 hit with TM-score >= 0.99,
+            with both scan kernels launched. Prints structures/s, the
+            parse / embed / write seconds, and the card's idle share while
+            one chunk of 512 is embedded again under torch.profiler.
+10. segment the `segment` CLI on the card (default weights, `--iterate
+            --save_domains`) over synthetic N/CA/C/O backbones of compact
+            helical domains: 80, 300, 700, 1,500 and 16 of 100-400 residues,
+            then 2,900 alone; every chain's TSV row has its residue count;
+            on the chains of <= 300 residues, domain ids equal and
+            confidences within 1e-3 of the port's CPU run. Prints
+            residues/s, the seconds of each chain, the peak device memory
+            at 2,900 residues, and the card's idle share in one forward at
+            700 under torch.profiler.
 
-Each path (e2e, pipelined, probes, variants) starts with every kernel's
+Each path (e2e, pipelined, probes, variants, createdb's search) starts with every kernel's
 launch count at 0 and fails unless each of its kernels was launched. The
 2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
 tools' synthetic DB); the kernel table takes the times and bounds of the
@@ -49,7 +70,8 @@ probes and variants from their tools' rows and times only the plain
 versions and library calls itself.
 
 Prints one line per phase with its seconds, a JSON line of the tools'
-results, a JSON line {"phase_a_split": [...]}, the nvidia-smi line, a JSON
+results, a JSON line {"createdb": ..., "segment": ...} of phases 9-10, a
+JSON line {"phase_a_split": [...]}, the nvidia-smi line, a JSON
 line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
@@ -73,10 +95,11 @@ from merizo_search_tpu_torch.tools import _bench_util
 from merizo_search_tpu_torch.tools._bench_util import bound, device_line
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-TOTAL_BUDGET_S = 300       # hard watchdog: dump stacks and exit(1) past this
+TOTAL_BUDGET_S = 510       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
-                  "pipelined": 20, "probes": 25, "variants": 30}
+                  "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
+                  "segment": 90}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -726,6 +749,238 @@ def e2e_phase(dev, tmp):
     return runs, launch_counts()
 
 
+N_CREATEDB = 2048          # createdb phase: structures of 50-400 residues,
+CREATEDB_QUERIES = tuple(range(410, 730, 20))   # 16 of lengths no other entry has,
+CREATEDB_LONG = (2050, 2300, 2600, 3000)  # and these, cut to createdb.MAX_RES = 2000
+
+
+class Interrupted(Exception):
+    """Raised into the first createdb run, as a crash would end it."""
+
+
+def read_tsv(path):
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        return [dict(zip(header, ln.rstrip("\n").split("\t"))) for ln in fh]
+
+
+def device_busy(fn):
+    """Run fn() under torch.profiler: (wall s, device-busy s or None, the
+    three kernels with the most device time). Busy is the union of the
+    kernels' intervals; None when the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return wall, None, []
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return wall, busy / 1e6, [[k[:80], v] for k, v in top]
+
+
+def createdb_phase(dev, tmp):
+    """The DB builder on the card, through the CLI, with a crash and a resume;
+    then dbinfo, the CPU embedding of sampled entries, and a self-search."""
+    import contextlib
+    import io
+
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch.db.codecs import FlatDB
+    from merizo_search_tpu_torch.ops import blockmax, gather
+    from merizo_search_tpu_torch.pipeline import createdb
+    from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
+    from merizo_search_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(21)
+    src = os.path.join(tmp, "createdb_in")
+    os.makedirs(src)
+    lengths = ([int(n) for n in rng.integers(50, 401, N_CREATEDB)] + list(CREATEDB_QUERIES)
+               + list(CREATEDB_LONG))
+    t = time.perf_counter()
+    for i, n in enumerate(lengths):
+        write_pdb(os.path.join(src, f"s{i:05d}.pdb"), walk(rng, n))
+    out = {"structures": len(lengths), "write_inputs_s": time.perf_counter() - t}
+
+    prefix = os.path.join(tmp, "built", "db")
+    chunk = N_CREATEDB // 4
+    real, calls = createdb.embed_structures, []
+
+    def crash_after_two_chunks(*a, **kw):
+        if len(calls) == 2:
+            raise Interrupted
+        calls.append(1)
+        return real(*a, **kw)
+
+    profiling.reset()
+    t = time.perf_counter()
+    createdb.embed_structures = crash_after_two_chunks
+    try:     # the CLI's own call, with checkpoints every `chunk` files
+        createdb.run_createdb(src, prefix, fmt="mmap", resume=False, chunk_files=chunk,
+                              device="cuda", sidecar="int8")
+    except Interrupted:
+        pass
+    else:
+        raise AssertionError("the interrupted createdb run ran to its end")
+    finally:
+        createdb.embed_structures = real
+    with open(prefix + ".progress") as fh:
+        prog = json.load(fh)
+    check(prog["files_done"] == prog["entries"] == 2 * chunk, f"checkpoint after 2 chunks: {prog}")
+    cli.main(["createdb", src, prefix, "-d", "cuda", "--db_format", "mmap",
+              "--precision", "int8", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    split = {k.split(".")[1]: v[0] for k, v in profiling.timings().items()
+             if k.startswith("createdb.")}
+    out.update(build_s=wall, structures_per_s=len(lengths) / wall, phase_s=split,
+               embed_calls=profiling.timings()["createdb.embed"][1])
+
+    db = FlatDB.open(prefix)
+    lens = db.lengths()
+    check(db.size == len(lengths) and db.has_quant("int8"), f"DB of {db.size} entries")
+    check(int((lens == createdb.MAX_RES).sum()) == len(CREATEDB_LONG)
+          and int(lens.max()) == createdb.MAX_RES, "long chains were not truncated")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["dbinfo", prefix, "--verify", "--sample", "0"])
+    check(f"verify:     {db.size}/{db.size} entries OK" in buf.getvalue()
+          and "sidecars:   int8" in buf.getvalue(), f"dbinfo: {buf.getvalue()}")
+
+    # how much of the embed step the card is busy: one chunk re-embedded
+    # under the profiler (the build syncs a batch at a time)
+    model = load_foldclass_params(None, dev)
+    chunk_coords = [db.coords(i) for i in range(chunk)]
+    embed_structures(model, chunk_coords[:8])                        # warm
+    e_wall, e_busy, e_top = device_busy(lambda: embed_structures(model, chunk_coords))
+    out["embed_profile"] = {"structures": chunk, "wall_s": e_wall, "device_busy_s": e_busy,
+                            "idle_share": None if e_busy is None else 1 - e_busy / e_wall,
+                            "top_kernels_s": e_top}
+
+    short = np.nonzero(lens <= 150)[0]     # the CPU embeds them in seconds
+    ids = np.sort(rng.choice(short, 32, replace=False))
+    cpu = embed_structures(load_foldclass_params(None, "cpu"), [db.coords(int(i)) for i in ids])
+    cpu /= np.linalg.norm(cpu, axis=1, keepdims=True)
+    err = float(np.abs(np.asarray(db.embeddings()[ids]) - cpu).max())
+    check(err <= 1e-4, f"card embeddings differ from the CPU's by {err}")
+    out["embed_vs_cpu_max_abs_err"] = err
+
+    # With the default (random) weights an embedding is nearly a function of
+    # the chain's length: random walks of one length agree in cosine to 1e-6.
+    # So the self-search queries are the entries whose lengths no other
+    # entry has (20 residues apart), and each must be its own first hit.
+    queries = [os.path.join(src, f"s{N_CREATEDB + i:05d}.pdb")
+               for i in range(len(CREATEDB_QUERIES))]
+    reset_counts()                                 # the createdb search path starts here
+    out["search"] = {}
+    for prec in ("bf16", "int8"):
+        before = (blockmax.launches, gather.launches)
+        res = os.path.join(tmp, f"self_{prec}")
+        t = time.perf_counter()
+        cli.main(["search", *queries, prefix, res, "-k", "10", "-d", "cuda",
+                  "--precision", prec, "--output_headers"])
+        dt = time.perf_counter() - t
+        first = {}
+        for r in read_tsv(res + "_search.tsv"):
+            first.setdefault(r["query"], r)
+        for q in queries:
+            name = os.path.basename(q)[:-4]
+            r = first.get(name)
+            check(r is not None and r["target"] == name,
+                  f"{prec}: {name} is not its own rank-1 hit ({r and r['target']})")
+            check(float(r["max_tm"]) >= 0.99, f"{prec}: {name} self TM-score {r['max_tm']}")
+        launched = {"blockmax_scan": blockmax.launches - before[0],
+                    "gather_block_scores": gather.launches - before[1]}
+        check(all(v > 0 for v in launched.values()), f"{prec}: scan kernels not launched")
+        out["search"][prec] = {"cli_s": dt, "launches": launched}
+    return out, launch_counts()
+
+
+SEGMENT_LENGTHS = (80, 300, 700, 1500)
+SEGMENT_BIG = 2900
+SEGMENT_PROFILED = 700
+
+
+def segment_phase(dev, tmp):
+    """The segmenter on the card, through the CLI, at full width with the
+    default weights; the short chains against the port on the CPU."""
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch.models.merizo.features import generate_features
+    from merizo_search_tpu_torch.models.merizo.network import load_merizo_params
+    from merizo_search_tpu_torch.segment.pipeline import segment_structures
+    from merizo_search_tpu_torch.tools.synthetic import helical_backbone, write_backbone_pdb
+
+    rng = np.random.default_rng(31)
+    src, dst = os.path.join(tmp, "segment_in"), os.path.join(tmp, "segment_out")
+    os.makedirs(src)
+    lengths = {f"len{n}": n for n in SEGMENT_LENGTHS}
+    lengths.update({f"batch{i:02d}": int(n) for i, n in enumerate(rng.integers(100, 401, 16))})
+    lengths[f"len{SEGMENT_BIG}"] = SEGMENT_BIG
+    paths = {}
+    for name, n in lengths.items():
+        paths[name] = os.path.join(src, name + ".pdb")
+        write_backbone_pdb(paths[name], helical_backbone(rng, n), rng)
+    flags = ["-d", "cuda", "--iterate", "--save_domains", "--output_headers",
+             "--merizo_output", dst]
+    out, rows = {"cli_s": {}}, []
+    big = f"len{SEGMENT_BIG}"
+    for label, names in (("chains", [k for k in lengths if k != big]), (big, [big])):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        cli.main(["segment", *(paths[k] for k in names), os.path.join(dst, label), *flags])
+        torch.cuda.synchronize()
+        out["cli_s"][label] = time.perf_counter() - t
+        out.setdefault("peak_mem_gib", {})[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows += read_tsv(os.path.join(dst, label + "_segment.tsv"))
+    got = {r["filename"]: r for r in rows}
+    check(sorted(got) == sorted(lengths), f"TSV rows for {sorted(got)}")
+    for name, n in lengths.items():
+        check(int(got[name]["nres"]) == n, f"{name}: nres {got[name]['nres']} != {n}")
+    out["chain_s"] = {name: float(r["runtime"]) for name, r in got.items()}
+    out["ndom"] = {name: int(r["ndom"]) for name, r in got.items()}
+    out["residues_per_s"] = sum(lengths.values()) / sum(out["chain_s"].values())
+
+    # where one forward spends the card's time, at 700 residues: at 2,900 the
+    # profiler's ~300k kernel and launch records take a minute to parse
+    model = load_merizo_params(None, "cuda")
+    f = generate_features(paths[f"len{SEGMENT_PROFILED}"])
+    x = [torch.from_numpy(f[k])[None].to(dev) for k in ("s", "z", "r", "t", "ri")]
+    x[1] = x[1][..., None]
+    f_wall, f_busy, f_top = device_busy(lambda: model.forward_features(*x))
+    out["forward_profile"] = {"nres": SEGMENT_PROFILED, "wall_s": f_wall, "device_busy_s": f_busy,
+                              "idle_share": None if f_busy is None else 1 - f_busy / f_wall,
+                              "top_kernels_s": f_top}
+    del x, f
+
+    small = [paths[k] for k, n in lengths.items() if n <= 300]
+    res = {d: segment_structures(model if d == "cuda" else load_merizo_params(None, d), small,
+                                 ["A"] * len(small), iterate=True) for d in ("cuda", "cpu")}
+    err = 0.0
+    for path, g, c in zip(small, res["cuda"], res["cpu"]):
+        check(np.array_equal(g["domain_ids"], c["domain_ids"]),
+              f"{path}: card and CPU domain ids differ")
+        err = max(err, float(np.abs(g["conf_res"] - c["conf_res"]).max()))
+    check(err <= 1e-3, f"card and CPU confidences differ by {err}")
+    out.update(compared_chains=len(small), conf_max_abs_err=err)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -745,6 +1000,7 @@ def main():
 
         with Phase("build") as ph:
             from merizo_search_tpu_torch.align import native
+            from merizo_search_tpu_torch.io import native_parse
             from merizo_search_tpu_torch.ops import _build
 
             t = time.perf_counter()
@@ -752,6 +1008,7 @@ def main():
             ph.notes.append(f"nvcc {time.perf_counter() - t:.2f} s")
             t = time.perf_counter()
             native.load()
+            check(native_parse.available(), "the native CA parser did not build")
             ph.notes.append(f"g++ {time.perf_counter() - t:.2f} s")
 
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -796,6 +1053,25 @@ def main():
                 if r["nslab"] == 2 and r["tile"] == 32768 and r["sbm"]:
                     ph.notes.append(f"{r['dtype']} slab x2 {r['ms']:.3f} ms (blockmax_scan "
                                     f"{r['baseline_blockmax_ms']:.3f})")
+
+        with Phase("createdb") as ph:
+            cdb, cdb_counts = createdb_phase(dev, tmp)
+            idle = cdb["embed_profile"]["idle_share"]
+            ph.notes.append(f"{cdb['structures']} structures in {cdb['build_s']:.2f} s "
+                            f"({cdb['structures_per_s']:.1f}/s): " + ", ".join(
+                                f"{k} {v:.3f} s" for k, v in cdb["phase_s"].items())
+                            + "; card idle in embed: "
+                            + ("not measured" if idle is None else f"{idle:.3f}"))
+
+        with Phase("segment") as ph:
+            seg = segment_phase(dev, tmp)
+            ph.notes.append(f"{seg['residues_per_s']:.1f} residues/s; " + ", ".join(
+                f"{k} {seg['chain_s'][k]:.3f} s" for k in
+                [f"len{n}" for n in SEGMENT_LENGTHS + (SEGMENT_BIG,)]) +
+                f"; peak {seg['peak_mem_gib'][f'len{SEGMENT_BIG}']:.2f} GiB at {SEGMENT_BIG}"
+                f"; card idle in one forward at {SEGMENT_PROFILED}: " + (
+                    "not measured" if seg["forward_profile"]["idle_share"] is None
+                    else f"{seg['forward_profile']['idle_share']:.3f}"))
 
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
@@ -864,8 +1140,10 @@ def main():
                           "pipelined": pipe_tool, "probe_tools": probe_tools,
                           "variant_tools": var_tools,
                           "path_launches": {"search": launches, "pipelined": pipe_counts,
-                                            "probes": probe_counts, "variants": var_counts},
+                                            "probes": probe_counts, "variants": var_counts,
+                                            "createdb_search": cdb_counts},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
+        print(json.dumps({"createdb": cdb, "segment": seg}), flush=True)
         print(json.dumps({"phase_a_split": splits}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,18 @@
-"""Command-line interface of the port: the `search` verb.
+"""Command-line interface of the port: the `segment`, `createdb`, `search`
+and `dbinfo` verbs.
 
+    python -m merizo_search_tpu_torch.cli segment input.pdb [...] output [flags]
+    python -m merizo_search_tpu_torch.cli createdb input_dir out_db [flags]
     python -m merizo_search_tpu_torch.cli search query.pdb [...] db_name output [tmp] [flags]
+    python -m merizo_search_tpu_torch.cli dbinfo db_name [flags]
 
 The same positionals, flags, defaults and output files as the JAX package's
-`search` verb (itself the reference's, merizo.py:33-443), with `-d cuda|cpu`
+verbs (themselves the reference's, merizo.py:33-443), with `-d cuda|cpu`
 choosing the device (default cuda; asking for cuda without a card is an
-error, not a fallback). Flags of modes the port does not run yet (--mesh,
---search_index ivf, --multi_domain_search, --tmalign_backend tpu, --trace)
-raise NotImplementedError; ROADMAP.md lists them in the order they come.
-The other verbs (segment, createdb, easy-search, dbinfo, serve) are later
-slices.
+error, not a fallback; dbinfo needs no device). Flags of modes the port does
+not run yet (--mesh, --search_index ivf, --multi_domain_search,
+--tmalign_backend tpu, --trace) raise NotImplementedError; ROADMAP.md lists
+them in the order they come. `easy-search` and `serve` are later slices.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import time
 
 logger = logging.getLogger(__name__)
 
-USAGE = """usage: python -m merizo_search_tpu_torch.cli search <input.pdb> [...] <db_name> <output> [flags]
-
-The PyTorch/CUDA port runs the `search` verb; see `search --help`."""
+USAGE = """Usage: python -m merizo_search_tpu_torch.cli <mode> <args>
+    <mode> is one of: 'segment', 'createdb', 'search' or 'dbinfo'
+    ('easy-search' and 'serve' are not ported yet).
+    Detailed help: python -m merizo_search_tpu_torch.cli <mode> --help"""
 
 
 def setup_logging():
@@ -39,9 +43,23 @@ def _ensure_parent(path: str):
         os.makedirs(parent, exist_ok=True)
 
 
-def _add_search_flags(p: argparse.ArgumentParser):
+def _add_device_flag(p: argparse.ArgumentParser):
     p.add_argument("-d", "--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on. 'cuda' raises when no card is present.")
+
+
+def _add_trace_flag(p: argparse.ArgumentParser):
+    p.add_argument("--trace", type=str, default=None, metavar="DIR",
+                   help="Device trace (not ported yet).")
+
+
+def _reject(flag: str):
+    raise NotImplementedError(
+        f"{flag} is not ported to the PyTorch package yet (ROADMAP.md, queue 1)")
+
+
+def _add_search_flags(p: argparse.ArgumentParser):
+    _add_device_flag(p)
     p.add_argument("-k", "--topk", type=int, default=1,
                    help="Max number of domain matches to return for each query.")
     p.add_argument("-t", "--threads", type=int, default=-1,
@@ -90,8 +108,48 @@ def _add_search_flags(p: argparse.ArgumentParser):
                         "databases too (the reference never implemented "
                         "mincov on its mmap path; this makes pt and mmap "
                         "layouts return identical hit sets).")
-    p.add_argument("--trace", type=str, default=None, metavar="DIR",
-                   help="Device trace (not ported yet).")
+    _add_trace_flag(p)
+
+
+def _add_merizo_flags(p: argparse.ArgumentParser):
+    p.add_argument("--merizo_output", type=str, default=os.environ.get("PWD", os.getcwd()))
+    p.add_argument("--save_pdf", action="store_true", default=False)
+    p.add_argument("--save_pdb", action="store_true", default=False)
+    p.add_argument("--save_domains", action="store_true", default=False)
+    p.add_argument("--save_fasta", action="store_true", default=False)
+    p.add_argument("--conf_filter", type=float, default=None)
+    p.add_argument("--plddt_filter", type=float, default=None)
+    p.add_argument("--iterate", action="store_true")
+    p.add_argument("--length_conditional_iterate", action="store_true")
+    p.add_argument("--max_iterations", type=int, default=3)
+    p.add_argument("--shuffle_indices", action="store_true", default=False)
+    p.add_argument("--return_indices", action="store_true", default=False)
+    p.add_argument("--min_domain_size", type=int, default=50)
+    p.add_argument("--min_fragment_size", type=int, default=10)
+    p.add_argument("--domain_ave_size", type=int, default=200)
+    p.add_argument("--conf_threshold", type=float, default=0.5)
+    p.add_argument("--pdb_chain", type=str, default="A")
+    p.add_argument("--merizo_weights", type=str, default=None,
+                   help="Directory with the reference's Merizo weight shards (.pt). "
+                        "Without it the port uses a seeded random init, not the "
+                        "JAX package's default (README).")
+
+
+def _merizo_kw(args):
+    return dict(
+        iterate=args.iterate,
+        length_conditional_iterate=args.length_conditional_iterate,
+        max_iterations=args.max_iterations,
+        shuffle_indices=args.shuffle_indices,
+        min_domain_size=args.min_domain_size,
+        min_fragment_size=args.min_fragment_size,
+        domain_ave_size=args.domain_ave_size,
+        conf_threshold=args.conf_threshold,
+        save_pdb=args.save_pdb, save_domains=args.save_domains,
+        save_fasta=args.save_fasta, save_pdf=args.save_pdf,
+        return_indices=args.return_indices,
+        conf_filter=args.conf_filter, plddt_filter=args.plddt_filter,
+    )
 
 
 def _reject_unported(args):
@@ -102,8 +160,7 @@ def _reject_unported(args):
                 (args.trace, "--trace")]
     for given, flag in unported:
         if given:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet (ROADMAP.md, queue 1)")
+            _reject(flag)
 
 
 def _fix_positional_tail(args) -> None:
@@ -177,6 +234,164 @@ def search(argv):
     return results
 
 
+def segment(argv):
+    from .io.results import write_segment_results
+    from .models.merizo.network import load_merizo_params
+    from .segment.outputs import run_merizo
+    from .utils import profiling
+
+    p = argparse.ArgumentParser(
+        prog="merizo_search_tpu_torch segment",
+        description="Segment multidomain proteins into domains.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("input", type=str, nargs="+")
+    p.add_argument("output", type=str,
+                   help="Output prefix; results land in <output>_segment.tsv.")
+    _add_device_flag(p)
+    p.add_argument("-t", "--threads", type=int, default=-1,
+                   help="Accepted for reference-CLI parity; unused.")
+    p.add_argument("--output_headers", action="store_true", default=False)
+    _add_trace_flag(p)
+    _add_merizo_flags(p)
+    args = p.parse_args(argv)
+    if args.trace:
+        _reject("--trace")
+    _ensure_parent(args.output)
+
+    out = args.output + "_segment.tsv"
+    if os.path.exists(out):
+        logger.warning("Segment output file '%s' already exists. Results will be overwritten!", out)
+    t0 = time.time()
+    model = load_merizo_params(args.merizo_weights, args.device)
+    chains = args.pdb_chain.rstrip(",").split(",")
+    if len(chains) == 1:
+        chains = chains * len(args.input)
+    _, results = run_merizo(model, args.input, pdb_chains=chains,
+                            merizo_output=args.merizo_output, **_merizo_kw(args))
+    write_segment_results(results, out, header=args.output_headers)
+    profiling.report(logger)
+    logger.info("Finished segment in %.3f seconds.", time.time() - t0)
+    return results
+
+
+def createdb(argv):
+    from .pipeline.createdb import run_createdb
+    from .utils import profiling
+
+    p = argparse.ArgumentParser(
+        prog="merizo_search_tpu_torch createdb",
+        description="Embed a directory of PDB files into a Foldclass database.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("input_dir", type=str)
+    p.add_argument("out_db", type=str)
+    _add_device_flag(p)
+    p.add_argument("--db_format", type=str, default="pt", choices=["pt", "mmap"],
+                   help="'pt' = reference small-DB layout; 'mmap' = large resumable layout.")
+    p.add_argument("--precision", type=str, default=None, choices=["int8", "bf16"],
+                   help="Also write a quantised embedding sidecar (mmap layout "
+                        "only). The fp32 file stays authoritative for reference "
+                        "interop.")
+    p.add_argument("--resume", action="store_true", default=False)
+    p.add_argument("--weights", type=str, default=None,
+                   help="Path to a Foldclass state dict (.pt); default: the JAX "
+                        "package's default weights.")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="Embed data-parallel across devices (not ported yet).")
+    _add_trace_flag(p)
+    args = p.parse_args(argv)
+    if args.precision and args.db_format != "mmap":
+        p.error("--precision requires --db_format mmap")
+    if args.mesh:
+        _reject("--mesh")
+    if args.trace:
+        _reject("--trace")
+    _ensure_parent(args.out_db)
+
+    t0 = time.time()
+    n = run_createdb(args.input_dir, args.out_db, weights=args.weights,
+                     fmt=args.db_format, resume=args.resume, device=args.device,
+                     sidecar=args.precision)
+    profiling.report(logger)
+    logger.info("Finished createdb in %.3f seconds.", time.time() - t0)
+    return n
+
+
+def dbinfo(argv):
+    """Inspect / verify a Foldclass database (parity: the reference's
+    standalone dbutil.py harness, dbutil.py:148-205, which prints name/seq
+    per id as a manual consistency check of the mmap layout)."""
+    import numpy as np
+
+    from .db.codecs import FlatDB, write_quantized_sidecar
+
+    p = argparse.ArgumentParser(
+        prog="merizo_search_tpu_torch dbinfo",
+        description="Print database layout info and spot-check entries.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("db_name", type=str)
+    p.add_argument("--ids", type=str, default=None,
+                   help="Comma-separated entry ids to print (name, seq len, "
+                        "coord shape, metadata).")
+    p.add_argument("--verify", action="store_true", default=False,
+                   help="Consistency-check every entry: seq/coord lengths "
+                        "match, names decode, embeddings finite.")
+    p.add_argument("--sample", type=int, default=1000,
+                   help="With --verify: entries to check (0 = all).")
+    p.add_argument("--write-sidecar", type=str, default=None,
+                   choices=["int8", "bf16"], dest="write_sidecar",
+                   help="Add a quantised embedding sidecar to an existing "
+                        "mmap-layout DB (incl. reference-built ones).")
+    args = p.parse_args(argv)
+
+    if args.write_sidecar:
+        if not os.path.exists(args.db_name + ".json"):
+            p.error("--write-sidecar needs an mmap-layout DB "
+                    f"({args.db_name}.json not found; .pt DBs are loaded "
+                    "whole and quantised in memory, no sidecar needed)")
+        write_quantized_sidecar(args.db_name, args.write_sidecar)
+
+    db = FlatDB.open(args.db_name)
+    emb = db.embeddings()
+    print(f"format:     {db.kind}")
+    print(f"entries:    {db.size}")
+    print(f"dim:        {db.dim}")
+    print(f"dtype:      {emb.dtype}")
+    print(f"normalised: {db.normalised}")
+    print(f"sidecars:   "
+          f"{' '.join(k for k in ('int8', 'bf16') if db.has_quant(k)) or 'none'}")
+    print(f"metadata:   {'yes' if getattr(db, '_meta_blob', None) else 'no'}")
+    lens = db.lengths()
+    print(f"lengths:    min {int(lens.min())}  median {int(np.median(lens))} "
+          f" max {int(lens.max())}")
+
+    if args.ids:
+        for i in (int(x) for x in args.ids.split(",")):
+            name, coords, seq = db.entry(i)
+            print(f"[{i}] {name}  len={len(seq)}  coords={coords.shape}  "
+                  f"meta={db.metadata(i)!r}")
+
+    if args.verify:
+        ids = np.arange(db.size)
+        if args.sample and db.size > args.sample:
+            ids = np.linspace(0, db.size - 1, args.sample).astype(np.int64)
+        bad = 0
+        for i in ids:
+            try:
+                name, coords, seq = db.entry(int(i))
+                ok = (len(seq) == coords.shape[0] and coords.shape[1] == 3
+                      and bool(np.isfinite(coords).all())
+                      and bool(np.isfinite(np.asarray(emb[int(i)], np.float32)).all()))
+            except Exception as e:
+                logger.error("entry %d: %s", i, e)
+                ok = False
+            if not ok:
+                bad += 1
+                logger.error("entry %d (%s) failed consistency check", i, db.name(int(i)))
+        print(f"verify:     {len(ids) - bad}/{len(ids)} entries OK")
+        if bad:
+            sys.exit(1)
+
+
 def main(argv=None):
     setup_logging()
     argv = sys.argv[1:] if argv is None else argv
@@ -188,12 +403,15 @@ def main(argv=None):
         from . import __version__
         print(f"merizo-search-tpu-torch {__version__}")
         return
-    if mode != "search":
+    verbs = {"segment": segment, "createdb": createdb, "search": search,
+             "dbinfo": dbinfo}
+    if mode not in verbs:
         print(f"Mode {mode!r} is not available: the PyTorch/CUDA port runs "
-              "'search' (ROADMAP.md lists the verbs still to port).")
+              f"{', '.join(repr(v) for v in verbs)} (ROADMAP.md lists the "
+              "verbs still to port).")
         sys.exit(2)
     try:
-        search(rest)
+        return verbs[mode](rest)
     except FileNotFoundError as e:
         # a bad database path is a user-input error, not a crash: log and
         # exit like the reference (dbsearch.py:72)

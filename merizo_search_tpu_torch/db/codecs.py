@@ -99,6 +99,10 @@ class StartEndWriter:
         self._pos += len(payload)
         self._if.write(np.asarray([start, self._pos], dtype=np.int64).tobytes())
 
+    def flush(self) -> None:
+        self._if.flush()
+        self._bf.flush()
+
     def close(self) -> None:
         self._if.close()
         self._bf.close()
@@ -187,6 +191,15 @@ class MmapDBWriter:
             self._meta.add((metadata or "{ }").encode("ascii"))
         self.count += 1
 
+    def flush(self) -> None:
+        """Push every entry added so far to the files, so that a checkpoint
+        written after this call never counts entries still in a buffer."""
+        self._emb_f.flush()
+        self._names_f.flush()
+        for w in (self._seq, self._ca, self._meta):
+            if w is not None:
+                w.flush()
+
     def finalize(self) -> str:
         self._emb_f.close()
         self._names_f.close()
@@ -266,6 +279,36 @@ def write_quantized_sidecar(db_prefix: str, kind: str = "int8",
 # ---------------------------------------------------------------------------
 # FlatDB facade
 
+def truncate_mmap_db(out_prefix: str, n_entries: int, dim: int = 128,
+                     with_metadata: bool = False) -> None:
+    """Truncate a partially-written mmap DB back to exactly n_entries
+    (crash-recovery for resumable createdb builds)."""
+    d = os.path.dirname(out_prefix) or "."
+    base = os.path.basename(out_prefix)
+
+    def _trunc(path, size):
+        if os.path.exists(path) and os.path.getsize(path) > size:
+            with open(path, "r+b") as fh:
+                fh.truncate(size)
+
+    _trunc(os.path.join(d, base + "_raw_128d_norm.db"), n_entries * dim * 4)
+    _trunc(os.path.join(d, base + "_raw_128d.index_names"), n_entries * NAME_RECORD)
+    pairs = [("_seq.index", "_seq.db"), ("_ca.index", "_ca.db")]
+    if with_metadata:
+        pairs.append(("_metadata.index", "_metadata.db"))
+    for isuf, bsuf in pairs:
+        ipath = os.path.join(d, base + isuf)
+        if not os.path.exists(ipath):
+            continue
+        _trunc(ipath, n_entries * 16)
+        if n_entries > 0:
+            se = np.memmap(ipath, dtype=np.int64, mode="r").reshape(-1, 2)
+            end = int(se[n_entries - 1, 1]) if len(se) >= n_entries else 0
+        else:
+            end = 0
+        _trunc(os.path.join(d, base + bsuf), end)
+
+
 class FlatDB:
     """Uniform read access to either DB layout for the search engine.
 
@@ -333,6 +376,19 @@ class FlatDB:
             )
         raise FileNotFoundError(
             f"{db_name} is not a valid db: neither {db_name}.pt nor {db_name}.json found")
+
+    @classmethod
+    def from_arrays(cls, embeddings: np.ndarray,
+                    entries: list[tuple[str, np.ndarray, str]],
+                    normalised: bool = False):
+        """In-memory database over (name, ca_coords, seq) entries — lets
+        createdb stream straight into a SearchEngine without a disk
+        round-trip (used by build-and-serve deployments and tests)."""
+        emb = np.asarray(embeddings, np.float32)
+        lengths = np.asarray([len(e[2]) for e in entries], np.int32)
+        return cls("pt", prefix=None, _emb=emb, _index=list(entries),
+                   _lengths=lengths, _meta_se=None, _meta_blob=None,
+                   size=emb.shape[0], dim=emb.shape[1], normalised=normalised)
 
     # -- embeddings ---------------------------------------------------------
     def embeddings(self) -> np.ndarray:

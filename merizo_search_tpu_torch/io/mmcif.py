@@ -1,4 +1,4 @@
-"""Minimal mmCIF (PDBx) CA reader.
+"""Minimal mmCIF (PDBx) readers: CA records and the backbone.
 
 The reference only consumes legacy .pdb files (makedb.py:47 lists *.pdb),
 but AFDB/PDB distribution has moved to mmCIF; createdb and the query paths
@@ -6,8 +6,9 @@ accept .cif/.mmcif here. Parses the `_atom_site` loop directly (no gemmi
 dependency): field order is taken from the loop header, so any column
 arrangement works.
 
-Returns the same {'coords', 'seq', 'name'} dict as io.pdb.read_ca.
-The port's copy of the JAX package's reader, CA path only.
+`read_ca_mmcif` returns the same {'coords', 'seq', 'name'} dict as
+io.pdb.read_ca; `parse_backbone_mmcif` the same structured array as
+io.pdb.parse_backbone. The port's copy of the JAX package's reader.
 """
 
 from __future__ import annotations
@@ -132,3 +133,55 @@ def read_ca_mmcif(path: str, chain: str = "A") -> dict:
         raise ValueError(f"Chain ID {chain!r} not present in mmCIF file {path}")
     return {"coords": np.asarray(coords, np.float32),
             "seq": "".join(seq), "name": path}
+
+
+def parse_backbone_mmcif(path: str, chain: str = "A") -> np.ndarray:
+    """Backbone (N, CA, C, O) mmCIF parser with the same semantics as
+    io.pdb.parse_backbone: first model, special-residue remapping,
+    altloc-by-occupancy resolution, complete-backbone filter, resi sort.
+    Returns a structured array with io.pdb.ATOM_DTYPE fields."""
+    from .pdb import ATOM_DTYPE, BACKBONE_ATOMS, finalize_backbone
+    from ..utils.residues import SPECIAL_AA_CONVERT, EXCLUDE_AA
+
+    col, idx, rows = _atom_site(path)
+
+    chain_field = "auth_asym_id" if "auth_asym_id" in idx else "label_asym_id"
+    resi_field = "auth_seq_id" if "auth_seq_id" in idx else "label_seq_id"
+    first_model = None
+    recs = []
+    for row in rows:
+        grp = col(row, "group_PDB", "ATOM")
+        resn = col(row, "label_comp_id", "")
+        if grp == "HETATM":
+            if resn not in SPECIAL_AA_CONVERT:
+                continue
+        elif grp != "ATOM":
+            continue
+        name = col(row, "label_atom_id")
+        if name not in BACKBONE_ATOMS:
+            continue
+        if col(row, chain_field, "A") != chain:
+            continue
+        model = col(row, "pdbx_PDB_model_num", "1")
+        if first_model is None:
+            first_model = model
+        elif model != first_model:
+            continue
+        if resn in EXCLUDE_AA:
+            continue
+        resn = SPECIAL_AA_CONVERT.get(resn, resn)
+        x, y, z = (col(row, f) for f in ("Cartn_x", "Cartn_y", "Cartn_z"))
+        resi = col(row, resi_field)
+        if x is None or y is None or z is None or resi is None:
+            continue  # truncated or null-token row
+        recs.append((
+            "ATOM", _to_int(col(row, "id", "0")), name,
+            col(row, "label_alt_id", ""), resn,
+            col(row, chain_field, "A"), _to_int(resi),
+            _to_float(x), _to_float(y), _to_float(z),
+            _to_float(col(row, "occupancy"), 1.0),
+            _to_float(col(row, "B_iso_or_equiv"), 0.0), 0.0))
+
+    if not recs:
+        return np.empty(0, dtype=ATOM_DTYPE)
+    return finalize_backbone(np.array(recs, dtype=ATOM_DTYPE))

@@ -1,8 +1,8 @@
 """Result formatting and TSV output.
 
-Parity: programs/utils.py:8-158 — same field vocabulary, ordering, separators
+Parity: programs/utils.py:8-176 — same field vocabulary, ordering, separators
 and numeric formats, so downstream consumers of the reference's TSVs can
-switch without changes. The `search` verb's writer only.
+switch without changes. The writers of the `search` and `segment` verbs.
 """
 
 from __future__ import annotations
@@ -98,3 +98,16 @@ def write_search_results(results: list[dict], output_file: str, format_list: lis
         jsonf = output_file + ".hit_metadata.json"
         json.dump(md, open(jsonf, "w"))
         logger.info("Metadata for hits written to %s", jsonf)
+
+
+def write_segment_results(results: list[dict], output_file: str, header: bool = False) -> None:
+    """Parity: programs/utils.py:161-176."""
+    with open(output_file, "w+") as fn:
+        if header:
+            fn.write("filename\tnres\tnres_dom\tnres_ndr\tndom\tpIoU\truntime\tresult\n")
+        for res in results:
+            fn.write("{}\t{}\t{}\t{}\t{}\t{:.4f}\t{:.4f}\t{}\n".format(
+                os.path.basename(res["name"]).replace(".pdb", ""),
+                int(res["length"]), int(res["nres_domain"]),
+                int(res["nres_non_domain"]), int(res["num_domains"]),
+                res["conf"], res["time"], res["dom_str"]))

@@ -37,7 +37,11 @@ def test_port_has_the_slice_modules():
               "tools._bench_util", "tools.perf_pipelined", "tools.perf_hbm",
               "tools.perf_int8_floor", "tools.perf_floor2", "ops.slab_interleave",
               "ops.gather_variants", "tools.perf_slab_interleave",
-              "tools.perf_gather_int8"):
+              "tools.perf_gather_int8", "io.native_parse", "pipeline.createdb",
+              "models.merizo.rigid", "models.merizo.features", "models.merizo.gru",
+              "models.merizo.ipa", "models.merizo.decoder", "models.merizo.network",
+              "segment.postprocess", "segment.pipeline", "segment.outputs",
+              "utils.residues", "tools.synthetic"):
         assert f"merizo_search_tpu_torch.{m}" in mods
 
 
