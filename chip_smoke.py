@@ -61,8 +61,28 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             residues/s, the seconds of each chain, the peak device memory
             at 2,900 residues, and the card's idle share in one forward at
             700 under torch.profiler.
+11. stream  the stream mode (superblocks staged through pinned buffers and
+            a side stream): an mmap DB of 2^24 seeded unit rows with int8
+            and bf16 sidecars (write_quantized_sidecar), Q = 32, k = 100,
+            bf16 and int8; a stream-mode engine (a lowered max_device_gb,
+            superblocks of 262,144 rows: 64) against a device-mode engine:
+            scores equal bit for bit, indices equal except among tied
+            scores, phases A and C launched once a superblock. Then
+            run_dbsearch with a stream engine over the e2e DB writes the e2e
+            int8 run's TSV. Prints rows/s (page cache hot: the files were
+            just written), the seconds of host staging, copies and scan,
+            and the card's idle share over one pass under torch.profiler.
+12. easy_search `easy-search --multi_domain_search` on the card in both
+            modes over four synthetic helical chains of 300-1,500 residues,
+            against a DB (`createdb`) of the domains the `segment` CLI cut
+            out of them (default weights): every multi-domain chain is its
+            own category-3 match with pair scores >= 0.99 (TM) or 0.999
+            (cosine); the 300-residue chain run with `-d cpu` chops the
+            same, finds the same hits and multi-domain rows, scores within
+            1e-4. Prints each run's phase seconds and scan launches.
 
-Each path (e2e, pipelined, probes, variants, createdb's search) starts with every kernel's
+Each path (e2e, pipelined, probes, variants, createdb's search, stream,
+easy-search) starts with every kernel's
 launch count at 0 and fails unless each of its kernels was launched. The
 2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
 tools' synthetic DB); the kernel table takes the times and bounds of the
@@ -71,6 +91,7 @@ versions and library calls itself.
 
 Prints one line per phase with its seconds, a JSON line of the tools'
 results, a JSON line {"createdb": ..., "segment": ...} of phases 9-10, a
+JSON line {"stream": ..., "easy_search": ...} of phases 11-12, a
 JSON line {"phase_a_split": [...]}, the nvidia-smi line, a JSON
 line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
@@ -99,7 +120,7 @@ TOTAL_BUDGET_S = 510       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
                   "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
-                  "segment": 90}
+                  "segment": 90, "stream": 240, "easy_search": 150}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -658,14 +679,21 @@ def write_mmap_db(prefix, emb, names, coords_of, pool):
     and sequence are pool[coords_of[i]] (start/end pairs into one blob)."""
     from merizo_search_tpu_torch.db.codecs import NAME_RECORD
 
+    rec = np.array([f"{nm[:32]:<32}\n".encode("ascii") for nm in names], f"S{NAME_RECORD}")
+    files = write_mmap_tables(prefix, rec, coords_of, pool, emb.shape[1])
+    emb.astype(np.float32).tofile(os.path.join(os.path.dirname(prefix), files["dbfname_IP"]))
+
+
+def write_mmap_tables(prefix, name_records, coords_of, pool, dim):
+    """Everything of the mmap layout but the embeddings file: the name
+    records, the coordinate and sequence blobs with their start/end pairs,
+    and the JSON descriptor. Returns the descriptor's file names."""
     d, base = os.path.dirname(prefix), os.path.basename(prefix)
     files = {"dbfname_IP": base + "_raw_128d_norm.db",
              "db_names_f": base + "_raw_128d.index_names",
              "sif": base + "_seq.index", "sdf": base + "_seq.db",
              "cif": base + "_ca.index", "cdf": base + "_ca.db"}
-    emb.astype(np.float32).tofile(os.path.join(d, files["dbfname_IP"]))
-    rec = np.array([f"{nm[:32]:<32}\n".encode("ascii") for nm in names], f"S{NAME_RECORD}")
-    rec.tofile(os.path.join(d, files["db_names_f"]))
+    name_records.tofile(os.path.join(d, files["db_names_f"]))
     lens = np.array([len(c) for c in pool], np.int64)
     for idx, blob, per_res in (("cif", "cdf", 12), ("sif", "sdf", 1)):
         start = np.concatenate([[0], np.cumsum(lens * per_res)[:-1]])
@@ -675,9 +703,10 @@ def write_mmap_db(prefix, emb, names, coords_of, pool):
             for c in pool:
                 fh.write(c.astype(np.float32).tobytes() if per_res == 12
                          else b"A" * len(c))
-    info = dict(files, DB_SIZE=len(emb), DB_DIM=emb.shape[1])
+    info = dict(files, DB_SIZE=len(name_records), DB_DIM=dim)
     with open(prefix + ".json", "w") as fh:
         json.dump(info, fh)
+    return files
 
 
 def e2e_phase(dev, tmp):
@@ -746,7 +775,7 @@ def e2e_phase(dev, tmp):
                                    "gather_block_scores": gather.launches - before[1]}}
         check(all(v > 0 for v in runs[prec]["launches"].values()),
               f"{prec}: a kernel was not launched on the main path: {runs[prec]['launches']}")
-    return runs, launch_counts()
+    return runs, launch_counts(), {"pdbs": pdbs, "weights": weights, "prefix": prefix}
 
 
 N_CREATEDB = 2048          # createdb phase: structures of 50-400 residues,
@@ -766,8 +795,10 @@ def read_tsv(path):
 
 def device_busy(fn):
     """Run fn() under torch.profiler: (wall s, device-busy s or None, the
-    three kernels with the most device time). Busy is the union of the
-    kernels' intervals; None when the profiler records no device event."""
+    three kernels with the most device time, the device seconds of every
+    kernel and copy by name). Busy is the union of the device events'
+    intervals (kernels and copies); None when the profiler records no
+    device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -780,7 +811,7 @@ def device_busy(fn):
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        return wall, None, []
+        return wall, None, [], {}
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -792,7 +823,7 @@ def device_busy(fn):
         if e.device_type == DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-    return wall, busy / 1e6, [[k[:80], v] for k, v in top]
+    return wall, busy / 1e6, [[k[:80], v] for k, v in top], per
 
 
 def createdb_phase(dev, tmp):
@@ -868,7 +899,7 @@ def createdb_phase(dev, tmp):
     model = load_foldclass_params(None, dev)
     chunk_coords = [db.coords(i) for i in range(chunk)]
     embed_structures(model, chunk_coords[:8])                        # warm
-    e_wall, e_busy, e_top = device_busy(lambda: embed_structures(model, chunk_coords))
+    e_wall, e_busy, e_top, _ = device_busy(lambda: embed_structures(model, chunk_coords))
     out["embed_profile"] = {"structures": chunk, "wall_s": e_wall, "device_busy_s": e_busy,
                             "idle_share": None if e_busy is None else 1 - e_busy / e_wall,
                             "top_kernels_s": e_top}
@@ -962,7 +993,7 @@ def segment_phase(dev, tmp):
     f = generate_features(paths[f"len{SEGMENT_PROFILED}"])
     x = [torch.from_numpy(f[k])[None].to(dev) for k in ("s", "z", "r", "t", "ri")]
     x[1] = x[1][..., None]
-    f_wall, f_busy, f_top = device_busy(lambda: model.forward_features(*x))
+    f_wall, f_busy, f_top, _ = device_busy(lambda: model.forward_features(*x))
     out["forward_profile"] = {"nres": SEGMENT_PROFILED, "wall_s": f_wall, "device_busy_s": f_busy,
                               "idle_share": None if f_busy is None else 1 - f_busy / f_wall,
                               "top_kernels_s": f_top}
@@ -979,6 +1010,214 @@ def segment_phase(dev, tmp):
     check(err <= 1e-3, f"card and CPU confidences differ by {err}")
     out.update(compared_chains=len(small), conf_max_abs_err=err)
     return out
+
+STREAM_BLOCK = 262_144     # the CLI's --search_batchsize default: 64 superblocks at N_BIG
+STREAM_Q, STREAM_K = 32, 100
+
+
+def write_stream_db(prefix, gen, dev):
+    """An mmap DB of N_BIG seeded unit rows (made on the card, written a
+    chunk at a time) with names s00000000..., each entry's coordinates one
+    of 64 pooled walks, and the int8 and bf16 sidecars of the port's
+    write_quantized_sidecar. Returns the seconds of each step."""
+    from merizo_search_tpu_torch.db.codecs import NAME_RECORD, write_quantized_sidecar
+
+    t, out = time.perf_counter(), {}
+    rng = np.random.default_rng(41)
+    pool = [walk(rng, int(n)) for n in rng.integers(50, 401, 64)]
+    idx = np.arange(N_BIG, dtype=np.int64)
+    rec = np.full((N_BIG, NAME_RECORD), ord(" "), np.uint8)
+    rec[:, 0], rec[:, -1] = ord("s"), ord("\n")
+    for p in range(8):
+        rec[:, 8 - p] = ord("0") + (idx // 10 ** p) % 10
+    files = write_mmap_tables(prefix, rec.view(f"S{NAME_RECORD}").ravel(), idx % 64, pool, 128)
+    with open(os.path.join(os.path.dirname(prefix), files["dbfname_IP"]), "wb") as fh:
+        for i in range(0, N_BIG, 1 << 21):
+            fh.write(unit_rows(1 << 21, gen, dev).cpu().numpy().tobytes())
+    out["write_db_s"] = time.perf_counter() - t
+    for kind in ("int8", "bf16"):
+        t = time.perf_counter()
+        write_quantized_sidecar(prefix, kind)
+        out[f"write_{kind}_sidecar_s"] = time.perf_counter() - t
+    return out
+
+
+def stream_phase(dev, tmp, e2e_db):
+    """The stream mode on the card: a DB of N_BIG rows scanned by a device-
+    mode engine and by a stream-mode engine (forced by a lowered budget),
+    superblocks of STREAM_BLOCK rows; then run_dbsearch with a stream
+    engine over the e2e DB against the e2e run's TSV."""
+    from merizo_search_tpu_torch.db.codecs import FlatDB
+    from merizo_search_tpu_torch.io.results import SEARCH_FIELDS, write_search_results
+    from merizo_search_tpu_torch.ops import blockmax, gather
+    from merizo_search_tpu_torch.pipeline.dbsearch import run_dbsearch
+    from merizo_search_tpu_torch.search.engine import SearchEngine
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    prefix = os.path.join(tmp, "stream", "db")
+    os.makedirs(os.path.dirname(prefix))
+    out = {"rows": N_BIG, "block": STREAM_BLOCK, "q": STREAM_Q, "k": STREAM_K,
+           "page_cache": "hot: the DB's files were written in this run",
+           "build": write_stream_db(prefix, gen, dev), "runs": {}}
+    db = FlatDB.open(prefix)
+    check(db.has_quant("int8") and db.has_quant("bf16"), "stream DB sidecars missing")
+    q = unit_rows(STREAM_Q, gen, dev).cpu().numpy()
+    counts = {}
+    for prec in ("bf16", "int8"):
+        t = time.perf_counter()
+        want = SearchEngine(db, prec, "cuda").search(q, STREAM_K)
+        device_s = time.perf_counter() - t                 # residency included
+        st = SearchEngine(db, prec, "cuda", max_device_gb=N_BIG * 128 / 2 ** 31,
+                          stream_block=STREAM_BLOCK)       # half the int8 DB
+        check(st.mode == "stream", f"{prec}: the lowered budget did not force the stream mode")
+        reset_counts()                                     # the stream path starts here
+        got = st.search(q, STREAM_K)
+        counts[prec] = launch_counts()
+        stats = dict(st.stream_stats)
+        check(stats["superblocks"] == N_BIG // STREAM_BLOCK,
+              f"{prec}: {stats['superblocks']} superblocks")
+        for name in ("blockmax_scan", "gather_block_scores"):
+            check(counts[prec][name] == stats["superblocks"],
+                  f"{prec}: {name} launched {counts[prec][name]} times in "
+                  f"{stats['superblocks']} superblocks")
+        check(np.array_equal(got[0], want[0]), f"{prec}: stream scores differ from device mode")
+        ties = 0
+        for va, ia, ib in zip(got[0], got[1], want[1]):
+            for v in np.unique(va):
+                tied = va == v
+                if tied.sum() == 1:
+                    check(ia[tied] == ib[tied], f"{prec}: stream index differs from device mode")
+                else:
+                    ties += int(tied.sum())
+        wall, busy, top, per = device_busy(lambda: st.search(q, STREAM_K))
+        copies = sum(v for k, v in per.items() if k.startswith("Memcpy"))
+        out["runs"][prec] = {
+            "device_mode_s": device_s, "stream": stats, "tied_entries": ties,
+            "profiled_pass": {"wall_s": wall, "device_busy_s": busy,
+                              "idle_share": None if busy is None else 1 - busy / wall,
+                              "copy_engine_s": copies,
+                              "kernels_s": sum(per.values()) - copies,
+                              "rows_per_s": N_BIG / wall, "top_kernels_s": top},
+            "bytes_per_row": 128 * (1 if prec == "int8" else 2) + (4 if prec == "int8" else 0)}
+    # the search path with a stream engine: the e2e int8 run's TSV
+    reset_counts()
+    e2e = FlatDB.open(e2e_db["prefix"])
+    eng = SearchEngine(e2e, "int8", "cuda", max_device_gb=e2e.size * 128 / 2 ** 31,
+                       stream_block=STREAM_BLOCK)
+    check(eng.mode == "stream", "the e2e DB did not stream")
+    res, _ = run_dbsearch(e2e_db["pdbs"], e2e_db["prefix"], topk=10, weights=e2e_db["weights"],
+                          engine=eng, mmap_cov_filter=True, device="cuda")
+    counts["search_path"] = launch_counts()
+    mine = os.path.join(tmp, "res_int8_stream_search.tsv")
+    write_search_results(res, mine, SEARCH_FIELDS.split(","), header=True)
+    with open(mine) as a, open(os.path.join(tmp, "res_int8_search.tsv")) as b:
+        check(a.read() == b.read(), "run_dbsearch with a stream engine wrote another TSV")
+    out["search_path"] = {"superblocks": eng.stream_stats["superblocks"], "same_tsv": True}
+    return out, counts
+
+
+EASY_LENGTHS = (300, 600, 900, 1500)
+# Pair thresholds (-m) of the multi-domain runs. The synthetic domains are
+# bundles of ideal helices, alike enough that 97% of their pairs align at TM
+# >= 0.5 (40% at >= 0.8, 2% at >= 0.9), and the random Foldclass weights put
+# most cosines above 0.99: at the defaults the assignment paths of an
+# 11-domain chain run into the 100,000 cap. A self match scores 1.0 in both.
+EASY_MINTM = {"exhaustive_tmalign": "0.9", "embscore": "0.999"}
+
+
+def easy_search_phase(dev, tmp):
+    """easy-search --multi_domain_search on the card, both modes, over
+    synthetic multi-domain chains whose domains (cut by the port's segment
+    verb, default weights) make the DB; then the smallest chain on the CPU."""
+    import glob
+
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch.tools.synthetic import helical_backbone, write_backbone_pdb
+    from merizo_search_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(52)          # the 300-residue chain gets 3 domains
+    src, seg, dbin = (os.path.join(tmp, "easy", x) for x in ("in", "seg", "dbin"))
+    for x in (src, dbin):
+        os.makedirs(x)
+    chains = []
+    for i, n in enumerate(EASY_LENGTHS):
+        chains.append(os.path.join(src, f"mdc{i}.pdb"))
+        write_backbone_pdb(chains[-1], helical_backbone(rng, n), rng)
+    profiling.reset()
+    t = time.perf_counter()
+    cli.main(["segment", *chains, os.path.join(seg, "s"), "-d", "cuda", "--save_domains",
+              "--output_headers", "--merizo_output", seg])
+    for f in sorted(glob.glob(os.path.join(seg, "*.dom_pdb"))):
+        shutil.copy(f, os.path.join(dbin, os.path.basename(f)[:-len(".dom_pdb")] + ".pdb"))
+    db = os.path.join(tmp, "easy", "db")
+    cli.main(["createdb", dbin, db, "-d", "cuda"])
+    ndom = {r["filename"]: int(r["ndom"]) for r in read_tsv(os.path.join(seg, "s_segment.tsv"))}
+    check(ndom["mdc0"] >= 2 and sum(v >= 2 for v in ndom.values()) >= 2,
+          f"too few multi-domain chains: {ndom}")
+    out = {"chains": dict(zip((f"mdc{i}" for i in range(len(chains))), EASY_LENGTHS)),
+           "ndom": ndom, "db_entries": len(os.listdir(dbin)),
+           "build_db_s": time.perf_counter() - t, "mintm": EASY_MINTM, "runs": {}}
+    counts, rows = {}, {}
+    for mode, d in (("exhaustive_tmalign", "cuda"), ("embscore", "cuda"),
+                    ("exhaustive_tmalign", "cpu")):
+        inputs = chains if d == "cuda" else chains[:1]
+        res = os.path.join(tmp, "easy", f"{mode}_{d}", "res")
+        reset_counts()                                 # the easy-search path starts here
+        profiling.reset()
+        t = time.perf_counter()
+        cli.main(["easy-search", *inputs, db, res, "-d", d, "--multi_domain_search",
+                  "--multi_domain_mode", mode, "-k", "100", "-m", EASY_MINTM[mode],
+                  "--output_headers", "--merizo_output", os.path.dirname(res)])
+        if d == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts[f"{mode}_{d}"] = launch_counts()
+        rows[(mode, d)] = {x: read_tsv(f"{res}_{x}.tsv")
+                           for x in ("segment", "search", "search_multi_dom")}
+        launched = {k: counts[f"{mode}_{d}"][k] for k in ("blockmax_scan", "gather_block_scores")}
+        out["runs"][f"{mode}_{d}"] = {
+            "wall_s": wall, "launches": launched,
+            "phase_s": {k: v[0] for k, v in profiling.timings().items() if "." not in k},
+            "multi_dom_rows": len(rows[(mode, d)]["search_multi_dom"])}
+        if d == "cpu":
+            continue
+        check(all(v > 0 for v in launched.values()), f"{mode}: a scan kernel was not launched")
+        bound = 0.99 if mode == "exhaustive_tmalign" else 0.999
+        for name, n in ndom.items():
+            if n < 2:
+                continue
+            selves = [r for r in rows[(mode, d)]["search_multi_dom"]
+                      if r["query_chain"] == name and r["hit_chain"] == name + "_merizo"
+                      and r["match_category"] == "3"]
+            check(len(selves) == 1, f"{mode}: {name} is not its own category-3 match")
+            scores = [float(f.split(":")[2]) for f in selves[0]["match_info"].split(",")]
+            check(min(scores) >= bound, f"{mode}: {name} self scores {scores}")
+    # the smallest chain on the CPU against the card
+    g, c = rows[("exhaustive_tmalign", "cuda")], rows[("exhaustive_tmalign", "cpu")]
+    gs = [r for r in g["segment"] if r["filename"] == "mdc0"]
+    check(len(gs) == 1 and len(c["segment"]) == 1 and gs[0]["result"] == c["segment"][0]["result"],
+          "card and CPU chop mdc0 differently")
+    err = 0.0
+    for field in ("emb_score", "max_tm"):
+        gh = {(r["query"], r["target"]): float(r[field]) for r in g["search"]
+              if r["query"].startswith("mdc0_")}
+        ch = {(r["query"], r["target"]): float(r[field]) for r in c["search"]}
+        check(gh and set(gh) == set(ch), "card and CPU hit sets differ for mdc0")
+        err = max([err] + [abs(gh[x] - ch[x]) for x in gh])
+    gm = [r for r in g["search_multi_dom"] if r["query_chain"] == "mdc0"]
+    cm = c["search_multi_dom"]
+    check(gm and len(gm) == len(cm), "card and CPU multi-domain rows differ for mdc0")
+    for a, b in zip(gm, cm):
+        check({k: v for k, v in a.items() if k != "match_info"}
+              == {k: v for k, v in b.items() if k != "match_info"},
+              "card and CPU multi-domain rows differ for mdc0")
+        for x, y in zip(a["match_info"].split(","), b["match_info"].split(",")):
+            check(x.split(":")[:2] == y.split(":")[:2], "multi-domain matches differ")
+            err = max(err, abs(float(x.split(":")[2]) - float(y.split(":")[2])))
+    # the TSVs print 4 decimals: one unit of the last place is within 1e-4
+    check(err <= 1e-4 + 1e-9, f"card and CPU scores differ by {err}")
+    out["cpu_vs_card"] = {"chain": "mdc0", "ndom": ndom["mdc0"], "max_abs_err": err}
+    return out, counts
 
 
 def main():
@@ -1025,7 +1264,7 @@ def main():
             ph.notes.append(f"recall@100 {rec}")
 
         with Phase("e2e") as ph:
-            runs, launches = e2e_phase(dev, tmp)
+            runs, launches, e2e_db = e2e_phase(dev, tmp)
             for prec, r in runs.items():
                 ph.notes.append(f"{prec}: " + ", ".join(f"{k} {v:.3f} s"
                                                          for k, v in r["phase_s"].items()))
@@ -1072,6 +1311,25 @@ def main():
                 f"; card idle in one forward at {SEGMENT_PROFILED}: " + (
                     "not measured" if seg["forward_profile"]["idle_share"] is None
                     else f"{seg['forward_profile']['idle_share']:.3f}"))
+
+        with Phase("stream") as ph:
+            stream, stream_counts = stream_phase(dev, tmp, e2e_db)
+            for prec, r in stream["runs"].items():
+                sr, pp = r["stream"], r["profiled_pass"]
+                ph.notes.append(
+                    f"{prec}: {sr['rows_per_s']:.4g} rows/s ({sr['superblocks']} superblocks, "
+                    f"page cache hot), staging {sr['stage_thread_s']:.3f} thread-s, copies "
+                    f"{sr['copy_s']:.3f} s, scan span {sr['scan_s']:.3f} s; card idle " + (
+                        "not measured" if pp["idle_share"] is None
+                        else f"{pp['idle_share']:.3f}") + f" of a pass ({pp['wall_s']:.3f} s; "
+                    f"kernels {pp['kernels_s']:.4f} s, copies {pp['copy_engine_s']:.4f} s)")
+
+        with Phase("easy_search") as ph:
+            easy, easy_counts = easy_search_phase(dev, tmp)
+            for label, r in easy["runs"].items():
+                ph.notes.append(f"{label}: {r['wall_s']:.2f} s (" + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r["phase_s"].items()) + f"), launches "
+                    f"A {r['launches']['blockmax_scan']} C {r['launches']['gather_block_scores']}")
 
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
@@ -1141,9 +1399,13 @@ def main():
                           "variant_tools": var_tools,
                           "path_launches": {"search": launches, "pipelined": pipe_counts,
                                             "probes": probe_counts, "variants": var_counts,
-                                            "createdb_search": cdb_counts},
+                                            "createdb_search": cdb_counts,
+                                            **{f"stream_{k}": v for k, v in stream_counts.items()},
+                                            **{f"easy_search_{k}": v
+                                               for k, v in easy_counts.items()}},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(json.dumps({"createdb": cdb, "segment": seg}), flush=True)
+        print(json.dumps({"stream": stream, "easy_search": easy}), flush=True)
         print(json.dumps({"phase_a_split": splits}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,18 +1,19 @@
-"""Command-line interface of the port: the `segment`, `createdb`, `search`
-and `dbinfo` verbs.
+"""Command-line interface of the port: the `segment`, `createdb`, `search`,
+`easy-search` and `dbinfo` verbs.
 
     python -m merizo_search_tpu_torch.cli segment input.pdb [...] output [flags]
     python -m merizo_search_tpu_torch.cli createdb input_dir out_db [flags]
     python -m merizo_search_tpu_torch.cli search query.pdb [...] db_name output [tmp] [flags]
+    python -m merizo_search_tpu_torch.cli easy-search query.pdb [...] db_name output [tmp] [flags]
     python -m merizo_search_tpu_torch.cli dbinfo db_name [flags]
 
 The same positionals, flags, defaults and output files as the JAX package's
 verbs (themselves the reference's, merizo.py:33-443), with `-d cuda|cpu`
 choosing the device (default cuda; asking for cuda without a card is an
-error, not a fallback; dbinfo needs no device). Flags of modes the port does
-not run yet (--mesh, --search_index ivf, --multi_domain_search,
---tmalign_backend tpu, --trace) raise NotImplementedError; ROADMAP.md lists
-them in the order they come. `easy-search` and `serve` are later slices.
+error, not a fallback; dbinfo needs no device). `--trace DIR` records a
+torch.profiler trace. Flags of modes the port does not run yet (--mesh,
+--search_index ivf, --tmalign_backend tpu) raise NotImplementedError;
+ROADMAP.md lists them in the order they come. `serve` is a later slice.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import time
 logger = logging.getLogger(__name__)
 
 USAGE = """Usage: python -m merizo_search_tpu_torch.cli <mode> <args>
-    <mode> is one of: 'segment', 'createdb', 'search' or 'dbinfo'
-    ('easy-search' and 'serve' are not ported yet).
+    <mode> is one of: 'segment', 'createdb', 'search', 'easy-search' or
+    'dbinfo' ('serve' is not ported yet).
     Detailed help: python -m merizo_search_tpu_torch.cli <mode> --help"""
 
 
@@ -50,7 +51,7 @@ def _add_device_flag(p: argparse.ArgumentParser):
 
 def _add_trace_flag(p: argparse.ArgumentParser):
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
-                   help="Device trace (not ported yet).")
+                   help="Record a torch.profiler trace (Chrome trace JSON) into DIR.")
 
 
 def _reject(flag: str):
@@ -73,15 +74,16 @@ def _add_search_flags(p: argparse.ArgumentParser):
     p.add_argument("-f", "--fastmode", action="store_true",
                    help="Fast mode for TM rescoring (fewer refinement iterations).")
     p.add_argument("--search_batchsize", type=int, default=262144,
-                   help="Stream-mode block size (the stream mode is not ported "
-                        "yet; device mode ignores it).")
+                   help="Rows per superblock of the stream mode, which scans "
+                        "DBs over the 8 GB device budget (device mode ignores it).")
     p.add_argument("--search_metric", type=str, default="IP",
                    help="Only 'IP' (cosine) is supported.")
     p.add_argument("--report_insignificant_hits", action="store_true", default=False)
     p.add_argument("--metadata_json", action="store_true", default=False)
     p.add_argument("--output_headers", action="store_true", default=False)
     p.add_argument("--multi_domain_search", action="store_true", default=False,
-                   help="Not ported yet.")
+                   help="Match the query chain's domains onto the DB's "
+                        "multi-domain chains (writes <output>_search_multi_dom.tsv).")
     p.add_argument("--multi_domain_mode", type=str, default="exhaustive_tmalign",
                    choices=["exhaustive_tmalign", "embscore"])
     p.add_argument("--skip_tmalign", action="store_true", default=False,
@@ -155,9 +157,7 @@ def _merizo_kw(args):
 def _reject_unported(args):
     unported = [(args.mesh, "--mesh"),
                 (args.search_index != "flat", "--search_index ivf"),
-                (args.multi_domain_search, "--multi_domain_search"),
-                (args.tmalign_backend == "tpu", "--tmalign_backend tpu"),
-                (args.trace, "--trace")]
+                (args.tmalign_backend == "tpu", "--tmalign_backend tpu")]
     for given, flag in unported:
         if given:
             _reject(flag)
@@ -182,10 +182,55 @@ def _fix_positional_tail(args) -> None:
             args.db_name, args.output, args.tmp)
 
 
-def search(argv):
-    from .io.results import (SEARCH_FIELDS, check_for_database,
-                             parse_output_format, write_search_results)
+def _do_search(args, inputs, inputs_are_ca, pdb_chain, fields_default):
+    """The search stage shared by `search` and `easy-search`: scan, TM-align
+    rescore, the TSVs, and the multi-domain search on request."""
+    from .io.results import (check_for_database, parse_output_format,
+                             write_all_dom_search_results, write_search_results)
     from .pipeline.dbsearch import run_dbsearch
+    from .pipeline.embed import load_foldclass_params
+    from .pipeline.multidomain import multi_domain_search
+    from .utils import profiling
+
+    check_for_database(args.db_name)
+    fields = parse_output_format(args.format, fields_default)
+    search_output = args.output + "_search.tsv"
+    insig_output = args.output + "_search_insignificant.tsv"
+    for f in (search_output, insig_output):
+        if os.path.exists(f):
+            logger.warning("Search output file '%s' already exists. Results will be overwritten!", f)
+
+    model = load_foldclass_params(args.weights, args.device)
+    results, all_results = run_dbsearch(
+        inputs, args.db_name, topk=args.topk, fastmode=args.fastmode,
+        mincos=args.mincos, mintm=args.mintm, mincov=args.mincov,
+        inputs_are_ca=inputs_are_ca, pdb_chain=pdb_chain,
+        skip_tmalign=args.skip_tmalign, search_batchsize=args.search_batchsize,
+        model=model, threads=max(args.threads, 0), precision=args.precision,
+        mmap_cov_filter=args.mmap_cov_filter, device=args.device)
+
+    with profiling.phase("write_results"):
+        write_search_results(results, search_output, fields,
+                             header=args.output_headers, metadata_json=args.metadata_json)
+        if args.report_insignificant_hits:
+            write_search_results(all_results, insig_output, fields,
+                                 header=args.output_headers,
+                                 metadata_json=args.metadata_json)
+    if args.multi_domain_search:
+        with profiling.phase("multi_domain"):
+            fl = multi_domain_search(
+                inputs, results, args.db_name, fastmode=args.fastmode,
+                mintm=args.mintm, inputs_from_easy_search=inputs_are_ca,
+                mode=args.multi_domain_mode, tmalign_backend=args.tmalign_backend,
+                threads=max(args.threads, 0), model=model, device=args.device)
+        if fl is not None:
+            write_all_dom_search_results(fl, args.output + "_search_multi_dom.tsv",
+                                         args.output_headers)
+    return results
+
+
+def search(argv):
+    from .io.results import SEARCH_FIELDS
     from .utils import profiling
 
     p = argparse.ArgumentParser(
@@ -205,32 +250,60 @@ def search(argv):
     _fix_positional_tail(args)
     _ensure_parent(args.output)
     t0 = time.time()
-
-    check_for_database(args.db_name)
-    fields = parse_output_format(args.format, SEARCH_FIELDS)
-    search_output = args.output + "_search.tsv"
-    insig_output = args.output + "_search_insignificant.tsv"
-    for f in (search_output, insig_output):
-        if os.path.exists(f):
-            logger.warning("Search output file '%s' already exists. Results will be overwritten!", f)
-
-    results, all_results = run_dbsearch(
-        args.input, args.db_name, topk=args.topk, fastmode=args.fastmode,
-        mincos=args.mincos, mintm=args.mintm, mincov=args.mincov,
-        pdb_chain=args.pdb_chain, skip_tmalign=args.skip_tmalign,
-        weights=args.weights, threads=max(args.threads, 0),
-        precision=args.precision, mmap_cov_filter=args.mmap_cov_filter,
-        device=args.device)
-
-    with profiling.phase("write_results"):
-        write_search_results(results, search_output, fields,
-                             header=args.output_headers, metadata_json=args.metadata_json)
-        if args.report_insignificant_hits:
-            write_search_results(all_results, insig_output, fields,
-                                 header=args.output_headers,
-                                 metadata_json=args.metadata_json)
+    with profiling.trace(args.trace):
+        results = _do_search(args, args.input, inputs_are_ca=False,
+                             pdb_chain=args.pdb_chain, fields_default=SEARCH_FIELDS)
     profiling.report(logger)
     logger.info("Finished search in %.3f seconds.", time.time() - t0)
+    return results
+
+
+def easy_search(argv):
+    """Segment the query chains, then search their domains (parity: the
+    JAX package's `easy-search`, the reference's merizo.py easy-search)."""
+    from .io.results import EASY_SEARCH_FIELDS, write_segment_results
+    from .models.merizo.network import load_merizo_params
+    from .segment.outputs import run_merizo
+    from .utils import profiling
+
+    p = argparse.ArgumentParser(
+        prog="merizo_search_tpu_torch easy-search",
+        description="Segment a multidomain chain and search it against a database.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("input", type=str, nargs="+")
+    p.add_argument("db_name", type=str)
+    p.add_argument("output", type=str)
+    p.add_argument("tmp", type=str, nargs="?", default=None,
+                   help="Accepted for reference-CLI parity; unused.")
+    p.add_argument("--format", type=str, default=EASY_SEARCH_FIELDS)
+    _add_search_flags(p)
+    _add_merizo_flags(p)
+    args = p.parse_args(argv)
+    _reject_unported(args)
+    _fix_positional_tail(args)
+    _ensure_parent(args.output)
+    t0 = time.time()
+    with profiling.trace(args.trace):
+        seg_out = args.output + "_segment.tsv"
+        if os.path.exists(seg_out):
+            logger.warning("Segment output file '%s' already exists. Results will be overwritten!", seg_out)
+        chains = args.pdb_chain.rstrip(",").split(",")
+        if len(chains) == 1:
+            chains = chains * len(args.input)
+        model = load_merizo_params(args.merizo_weights, args.device)
+        domains, seg_results = run_merizo(model, args.input, pdb_chains=chains,
+                                          merizo_output=args.merizo_output,
+                                          **_merizo_kw(args))
+        write_segment_results(seg_results, seg_out, header=args.output_headers)
+        results = None
+        if len(domains) == 0:
+            logger.info("easy-search finished after segmentation. "
+                        "Segmentation of this PDB file was not possible")
+        else:
+            results = _do_search(args, domains, inputs_are_ca=True, pdb_chain=None,
+                                 fields_default=EASY_SEARCH_FIELDS)
+    profiling.report(logger)
+    logger.info("Finished easy-search in %.3f seconds.", time.time() - t0)
     return results
 
 
@@ -254,21 +327,20 @@ def segment(argv):
     _add_trace_flag(p)
     _add_merizo_flags(p)
     args = p.parse_args(argv)
-    if args.trace:
-        _reject("--trace")
     _ensure_parent(args.output)
 
     out = args.output + "_segment.tsv"
     if os.path.exists(out):
         logger.warning("Segment output file '%s' already exists. Results will be overwritten!", out)
     t0 = time.time()
-    model = load_merizo_params(args.merizo_weights, args.device)
-    chains = args.pdb_chain.rstrip(",").split(",")
-    if len(chains) == 1:
-        chains = chains * len(args.input)
-    _, results = run_merizo(model, args.input, pdb_chains=chains,
-                            merizo_output=args.merizo_output, **_merizo_kw(args))
-    write_segment_results(results, out, header=args.output_headers)
+    with profiling.trace(args.trace):
+        model = load_merizo_params(args.merizo_weights, args.device)
+        chains = args.pdb_chain.rstrip(",").split(",")
+        if len(chains) == 1:
+            chains = chains * len(args.input)
+        _, results = run_merizo(model, args.input, pdb_chains=chains,
+                                merizo_output=args.merizo_output, **_merizo_kw(args))
+        write_segment_results(results, out, header=args.output_headers)
     profiling.report(logger)
     logger.info("Finished segment in %.3f seconds.", time.time() - t0)
     return results
@@ -303,14 +375,13 @@ def createdb(argv):
         p.error("--precision requires --db_format mmap")
     if args.mesh:
         _reject("--mesh")
-    if args.trace:
-        _reject("--trace")
     _ensure_parent(args.out_db)
 
     t0 = time.time()
-    n = run_createdb(args.input_dir, args.out_db, weights=args.weights,
-                     fmt=args.db_format, resume=args.resume, device=args.device,
-                     sidecar=args.precision)
+    with profiling.trace(args.trace):
+        n = run_createdb(args.input_dir, args.out_db, weights=args.weights,
+                         fmt=args.db_format, resume=args.resume, device=args.device,
+                         sidecar=args.precision)
     profiling.report(logger)
     logger.info("Finished createdb in %.3f seconds.", time.time() - t0)
     return n
@@ -404,7 +475,7 @@ def main(argv=None):
         print(f"merizo-search-tpu-torch {__version__}")
         return
     verbs = {"segment": segment, "createdb": createdb, "search": search,
-             "dbinfo": dbinfo}
+             "easy-search": easy_search, "dbinfo": dbinfo}
     if mode not in verbs:
         print(f"Mode {mode!r} is not available: the PyTorch/CUDA port runs "
               f"{', '.join(repr(v) for v in verbs)} (ROADMAP.md lists the "

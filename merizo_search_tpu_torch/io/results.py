@@ -1,8 +1,9 @@
 """Result formatting and TSV output.
 
-Parity: programs/utils.py:8-176 — same field vocabulary, ordering, separators
+Parity: programs/utils.py:8-185 — same field vocabulary, ordering, separators
 and numeric formats, so downstream consumers of the reference's TSVs can
-switch without changes. The writers of the `search` and `segment` verbs.
+switch without changes. The writers of the `search`, `segment` and
+`easy-search` verbs, and of the multi-domain search's rows.
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ import os
 logger = logging.getLogger(__name__)
 
 SEARCH_FIELDS = "query,emb_rank,target,emb_score,q_len,t_len,ali_len,seq_id,q_tm,t_tm,max_tm,rmsd,metadata"
+EASY_SEARCH_FIELDS = "query,chopping,conf,plddt,emb_rank,target,emb_score,q_len,t_len,ali_len,seq_id,q_tm,t_tm,max_tm,rmsd,metadata"
+
+_HEADER_NAMES = {
+    "conf": "dom_conf",
+    "plddt": "dom_plddt",
+}
+
 
 def parse_output_format(format_str: str, expected_str: str) -> list[str]:
     wanted = format_str.split(",")
@@ -50,6 +58,12 @@ def _fmt_field(option: str, rank, match: dict) -> str:
         return str(match["query"])
     if option == "target":
         return str(match["target"])
+    if option == "chopping":
+        return str(match.get("dom_str"))
+    if option == "conf":
+        return "{:.4f}".format(match["dom_conf"])
+    if option == "plddt":
+        return "{:.4f}".format(match["dom_plddt"])
     if option == "emb_rank":
         return "{}".format(rank)
     if option == "emb_score":
@@ -81,7 +95,7 @@ def write_search_results(results: list[dict], output_file: str, format_list: lis
     format_list; optional side-car JSON of hit metadata)."""
     with open(output_file, "w+") as fn:
         if header:
-            fn.write("\t".join(format_list) + "\n")
+            fn.write("\t".join(_HEADER_NAMES.get(o, o) for o in format_list) + "\n")
         for res in results:
             for rank, match in res.items():
                 fn.write("\t".join(_fmt_field(o, rank, match) for o in format_list) + "\n")
@@ -111,3 +125,14 @@ def write_segment_results(results: list[dict], output_file: str, header: bool = 
                 int(res["length"]), int(res["nres_domain"]),
                 int(res["nres_non_domain"]), int(res["num_domains"]),
                 res["conf"], res["time"], res["dom_str"]))
+
+
+def write_all_dom_search_results(results, output_file: str, header: bool = False) -> None:
+    """Parity: programs/utils.py:179-185 (multi-domain search rows)."""
+    if results is None:
+        return
+    with open(output_file, "w+") as fn:
+        if header:
+            fn.write("query_chain\tnqd\thit_chain\tnhd\tmatch_category\tmatch_info\thit_metadata\n")
+        for res in results:
+            fn.write("\t".join(str(a) for a in res) + "\n")

@@ -55,8 +55,9 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
     if use_len:
         # tl = tlen*mincov and qcap = qlen, so the kernels' tl <= qcap is the
         # reference's qlen >= tlen*mincov bit for bit (dividing qlen by
-        # mincov instead disagrees at f32 coverage boundaries)
-        cov = torch.tensor(mincov, dtype=torch.float32, device=q.device)
+        # mincov instead disagrees at f32 coverage boundaries). cov stays a
+        # CPU 0-dim tensor: no host-to-device copy, so no hidden sync
+        cov = torch.tensor(mincov, dtype=torch.float32)
         tl = (tlen.to(torch.float32) * cov).contiguous()
         qcap = qlen.to(torch.float32).contiguous()
 

@@ -8,6 +8,7 @@ len(query) >= len(target) * mincov), with -inf scores for masked entries.
 
 `quantize_rows` / `quantize_blocks` are numpy copies of the JAX package's
 quantisers, so DBs and queries quantise to the same bytes in both packages.
+`merge_partials` merges the stream mode's per-superblock top-k.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ def topk_scan(q: torch.Tensor, db: torch.Tensor, n_valid: int, k: int,
     vals = torch.full((qn, 0), float("-inf"), device=q.device)
     idxs = torch.zeros((qn, 0), dtype=torch.int64, device=q.device)
     if tlen is not None:
+        # a CPU 0-dim tensor: a CUDA op reads it as a kernel argument, so
+        # no host-to-device copy (and no hidden sync) per call
         cov = torch.tensor(mincov, dtype=torch.float32)
     for c0 in range(0, db.shape[0], chunk):
         blk = db[c0:c0 + chunk].to(torch.float32)
@@ -44,7 +47,7 @@ def topk_scan(q: torch.Tensor, db: torch.Tensor, n_valid: int, k: int,
         gi = torch.arange(c0, c0 + blk.shape[0], device=q.device)
         s = torch.where(gi[None, :] < n_valid, s, float("-inf"))
         if tlen is not None:
-            tl = tlen[c0:c0 + chunk] * cov.to(q.device)
+            tl = tlen[c0:c0 + chunk] * cov
             s = torch.where(qlen[:, None] >= tl[None, :], s, float("-inf"))
         av = torch.cat([vals, s], dim=1)
         ai = torch.cat([idxs, gi[None, :].expand(qn, -1)], dim=1)
@@ -56,6 +59,17 @@ def topk_scan(q: torch.Tensor, db: torch.Tensor, n_valid: int, k: int,
         idxs = torch.cat([idxs, idxs.new_full((qn, pad), -1)], dim=1)
     idxs = torch.where(torch.isfinite(vals), idxs, -1)
     return vals, idxs
+
+
+def merge_partials(vals: torch.Tensor, idxs: torch.Tensor, k: int):
+    """Merge per-superblock partial top-k results: vals / idxs [P, Q, k']
+    -> (scores [Q, k], indices [Q, k]), one `torch.topk` over [Q, P*k']
+    and a gather."""
+    p, qn, kk = vals.shape
+    av = vals.permute(1, 0, 2).reshape(qn, p * kk)
+    ai = idxs.permute(1, 0, 2).reshape(qn, p * kk)
+    v, sel = torch.topk(av, min(k, p * kk), dim=1)
+    return v, torch.gather(ai, 1, sel)
 
 
 def quantize_rows(x: np.ndarray):

@@ -3,7 +3,8 @@
 Reference: programs/Foldclass/dbsearch.py:475-551 (run_dbsearch). The port's
 twin of the JAX package's `run_dbsearch`, with the same flow and filters:
 
-  batched query embedding (bucketed)  ->  SearchEngine (device mode)  ->
+  batched query embedding (bucketed)  ->  SearchEngine (device or stream
+  mode)  ->
   ONE batched native TM-align call for every surviving query-hit pair  ->
   per-query result dicts.
 
@@ -34,6 +35,13 @@ from .embed import embed_structures, load_foldclass_params, MAX_RES
 logger = logging.getLogger(__name__)
 
 
+def _query_dicts(inputs, inputs_are_ca: bool, pdb_chains: list[str]):
+    """Queries as coords/seq/name dicts: read from files, or given as such
+    (easy-search's segmented domains)."""
+    return [q if inputs_are_ca else read_ca(q, pdb_chains[i])
+            for i, q in enumerate(inputs)]
+
+
 def _chains_for(inputs, pdb_chain: str | None):
     if not pdb_chain:
         return ["A"] * len(inputs)
@@ -47,25 +55,34 @@ def _chains_for(inputs, pdb_chain: str | None):
 
 def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
                  mincos: float = 0.5, mintm: float = 0.5, mincov: float = 0.7,
-                 pdb_chain: str | None = None, skip_tmalign: bool = False,
+                 inputs_are_ca: bool = False, pdb_chain: str | None = None,
+                 skip_tmalign: bool = False, search_batchsize: int = 2 ** 21,
                  model=None, weights: str | None = None,
+                 engine: SearchEngine | None = None,
                  threads: int = 0, precision: str = "bf16",
                  mmap_cov_filter: bool = False, device: str = "cuda"):
     """Search queries against a database.
 
-    inputs: list of PDB/mmCIF paths. model: a loaded FoldClassNet (else
-    loaded from `weights` onto `device`). Returns (search_results, all_search_results):
-    per query, a dict {rank: hit_dict} of significant / insignificant hits.
+    inputs: list of PDB/mmCIF paths, or (inputs_are_ca=True) of dicts with
+    'coords'/'seq'/'name' (and dom_str/dom_conf/dom_plddt from the
+    segmenter). model: a loaded FoldClassNet (else loaded from `weights`
+    onto `device`). engine: a prebuilt SearchEngine over the DB (else one
+    is opened at `precision`, streaming superblocks of `search_batchsize`
+    rows when the DB exceeds the device budget). Returns (search_results,
+    all_search_results): per query, a dict {rank: hit_dict} of significant
+    / insignificant hits.
     """
     if len(inputs) == 0:
         raise ValueError("No inputs were provided!")
     if model is None:
         model = load_foldclass_params(weights, device)
     chains = _chains_for(inputs, pdb_chain)
-    queries = [read_ca(q, chains[i]) for i, q in enumerate(inputs)]
+    queries = _query_dicts(inputs, inputs_are_ca, chains)
 
-    db = FlatDB.open(db_name)
-    engine = SearchEngine(db, dtype=precision, device=device)
+    if engine is None:
+        engine = SearchEngine(FlatDB.open(db_name), dtype=precision, device=device,
+                              stream_block=search_batchsize)
+    db = engine.db
     use_cov_filters = db.kind == "pt" or mmap_cov_filter
 
     logger.info("embedding %d queries", len(queries))
@@ -102,6 +119,9 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
             "q_len": len(q["seq"]),
             "t_len": int(db.lengths()[i]),
             "tmalign_output": tm_output,
+            "dom_str": q.get("dom_str"),
+            "dom_conf": q.get("dom_conf"),
+            "dom_plddt": q.get("dom_plddt"),
             "dbindex": i,
             "metadata": db.metadata(i),
         }

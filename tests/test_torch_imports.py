@@ -41,7 +41,8 @@ def test_port_has_the_slice_modules():
               "models.merizo.rigid", "models.merizo.features", "models.merizo.gru",
               "models.merizo.ipa", "models.merizo.decoder", "models.merizo.network",
               "segment.postprocess", "segment.pipeline", "segment.outputs",
-              "utils.residues", "tools.synthetic"):
+              "utils.residues", "tools.synthetic", "pipeline.multidomain",
+              "utils.profiling"):
         assert f"merizo_search_tpu_torch.{m}" in mods
 
 

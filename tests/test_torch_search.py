@@ -154,7 +154,6 @@ def test_cli_search_writes_the_same_tsv(setup):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"], ["--search_index", "ivf"],
-                                  ["--multi_domain_search"],
                                   ["--tmalign_backend", "tpu"]])
 def test_cli_unported_modes_raise(setup, flag):
     from merizo_search_tpu_torch import cli
