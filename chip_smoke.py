@@ -81,9 +81,32 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             same, finds the same hits and multi-domain rows, scores within
             1e-4. Prints each run's phase seconds and scan launches.
 
+13. ivf     the IVF index (tools/ivf_curve's data: 2^20 unit rows around 256
+            Gaussian centres, Q = 256 queries near DB rows, nlist 1024,
+            expand 0.25, k = 100): the build's seconds by step; recall@100
+            against the float64 ranking and queries/s at nprobe 4-128, bf16
+            and int8, with and without the f32 rerank (recall never falls as
+            nprobe rises, rerank never below plain); at nprobe = nlist (Q =
+            32) the flat fused scan's result, scores bit for bit; phase C at
+            the IVF shapes against its plain version and timed (the probe
+            gather at nprobe 32, bf16 and int8; the f32 mode at the rerank
+            shape, Q = 256, KB = 101, within 1e-5); then SearchEngine(index=
+            "ivf") over an mmap DB of these rows in device mode (with and
+            without rerank: three phase-C launches, one in the f32 mode) and
+            forced to stream (disk sidecars built in the run's temp directory;
+            phases A and C once a staged group; recall >= device mode's; at
+            nprobe = nlist the device flat scan's result bit for bit; at
+            Q = 8, whose probe union is a few percent of the layout, staged
+            64 clusters a group: under the whole layout, in more than one
+            group, and the same engine's result on the CPU within 1e-5); and
+            `search --search_index ivf` over the e2e DB, every planted row at
+            rank 1. Prints the card's busy share in one search (bf16,
+            nprobe 32, with and without rerank) under torch.profiler.
+
 Each path (e2e, pipelined, probes, variants, createdb's search, stream,
-easy-search) starts with every kernel's
-launch count at 0 and fails unless each of its kernels was launched. The
+easy-search, the ivf phase's device, stream, small-batch stream and CLI
+runs) starts with
+every kernel's launch count at 0 and fails unless each of its kernels was launched. The
 2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
 tools' synthetic DB); the kernel table takes the times and bounds of the
 probes and variants from their tools' rows and times only the plain
@@ -92,7 +115,8 @@ versions and library calls itself.
 Prints one line per phase with its seconds, a JSON line of the tools'
 results, a JSON line {"createdb": ..., "segment": ...} of phases 9-10, a
 JSON line {"stream": ..., "easy_search": ...} of phases 11-12, a
-JSON line {"phase_a_split": [...]}, the nvidia-smi line, a JSON
+JSON line {"phase_a_split": [...]}, a JSON line {"ivf": ...} of phase 13,
+the nvidia-smi line, a JSON
 line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
@@ -120,7 +144,7 @@ TOTAL_BUDGET_S = 510       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
                   "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
-                  "segment": 90, "stream": 240, "easy_search": 150}
+                  "segment": 90, "stream": 240, "easy_search": 150, "ivf": 120}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -388,7 +412,8 @@ def reset_counts():
     from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
                                              probes, slab_interleave)
 
-    blockmax.launches = gather.launches = pipelined.launches = slab_interleave.launches = 0
+    blockmax.launches = gather.launches = gather.launches_f32 = 0
+    pipelined.launches = slab_interleave.launches = 0
     for counts in (probes.launches, gather_variants.launches):
         for name in counts:
             counts[name] = 0
@@ -399,6 +424,7 @@ def launch_counts():
                                              probes, slab_interleave)
 
     return {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches,
+            "gather_block_scores.f32": gather.launches_f32,
             "blockmax_scan_gather": pipelined.launches, **probes.launches,
             "slab_scan": slab_interleave.launches,
             **{f"gather_variant.{m}": n for m, n in gather_variants.launches.items()}}
@@ -775,7 +801,8 @@ def e2e_phase(dev, tmp):
                                    "gather_block_scores": gather.launches - before[1]}}
         check(all(v > 0 for v in runs[prec]["launches"].values()),
               f"{prec}: a kernel was not launched on the main path: {runs[prec]['launches']}")
-    return runs, launch_counts(), {"pdbs": pdbs, "weights": weights, "prefix": prefix}
+    return runs, launch_counts(), {"pdbs": pdbs, "weights": weights, "prefix": prefix,
+                                   "planted": planted}
 
 
 N_CREATEDB = 2048          # createdb phase: structures of 50-400 residues,
@@ -1015,22 +1042,30 @@ STREAM_BLOCK = 262_144     # the CLI's --search_batchsize default: 64 superblock
 STREAM_Q, STREAM_K = 32, 100
 
 
+def numbered_records(n, letter):
+    """The name records of n entries named letter + 8 digits (00000000...)."""
+    from merizo_search_tpu_torch.db.codecs import NAME_RECORD
+
+    idx = np.arange(n, dtype=np.int64)
+    rec = np.full((n, NAME_RECORD), ord(" "), np.uint8)
+    rec[:, 0], rec[:, -1] = ord(letter), ord("\n")
+    for p in range(8):
+        rec[:, 8 - p] = ord("0") + (idx // 10 ** p) % 10
+    return rec.view(f"S{NAME_RECORD}").ravel()
+
+
 def write_stream_db(prefix, gen, dev):
     """An mmap DB of N_BIG seeded unit rows (made on the card, written a
     chunk at a time) with names s00000000..., each entry's coordinates one
     of 64 pooled walks, and the int8 and bf16 sidecars of the port's
     write_quantized_sidecar. Returns the seconds of each step."""
-    from merizo_search_tpu_torch.db.codecs import NAME_RECORD, write_quantized_sidecar
+    from merizo_search_tpu_torch.db.codecs import write_quantized_sidecar
 
     t, out = time.perf_counter(), {}
     rng = np.random.default_rng(41)
     pool = [walk(rng, int(n)) for n in rng.integers(50, 401, 64)]
     idx = np.arange(N_BIG, dtype=np.int64)
-    rec = np.full((N_BIG, NAME_RECORD), ord(" "), np.uint8)
-    rec[:, 0], rec[:, -1] = ord("s"), ord("\n")
-    for p in range(8):
-        rec[:, 8 - p] = ord("0") + (idx // 10 ** p) % 10
-    files = write_mmap_tables(prefix, rec.view(f"S{NAME_RECORD}").ravel(), idx % 64, pool, 128)
+    files = write_mmap_tables(prefix, numbered_records(N_BIG, "s"), idx % 64, pool, 128)
     with open(os.path.join(os.path.dirname(prefix), files["dbfname_IP"]), "wb") as fh:
         for i in range(0, N_BIG, 1 << 21):
             fh.write(unit_rows(1 << 21, gen, dev).cpu().numpy().tobytes())
@@ -1114,6 +1149,259 @@ def stream_phase(dev, tmp, e2e_db):
         check(a.read() == b.read(), "run_dbsearch with a stream engine wrote another TSV")
     out["search_path"] = {"superblocks": eng.stream_stats["superblocks"], "same_tsv": True}
     return out, counts
+
+
+IVF_ROWS_LOG2, IVF_NLIST, IVF_K, IVF_Q = 20, 1024, 100, 256   # the IVF curve's shape
+IVF_PROBE = 32             # the engine's and the CLI's default nprobe
+IVF_Q_SMALL = 8            # a batch whose probe union is a few percent of the layout
+
+
+def gather_row(mode, q, db, bidx, npad, tl, qc, flush, **kw):
+    """Phase C in one mode against its plain version at an IVF shape, then
+    timed: the row of the kernel table. Bytes: each distinct selected block
+    (rows and tl) once, the queries, bidx (and scale_sel), qcap, the output."""
+    from merizo_search_tpu_torch.ops import gather
+
+    got = gather.gather_block_scores(q, db, bidx, npad, tl, qc, **kw)
+    torch.cuda.synchronize()
+    want = gather.gather_plain(q, db, bidx, npad, tl, qc, **kw)
+    err = max_err(got, want, mode == "int8")
+    del got, want
+    ms = time_ms(lambda: gather.gather_block_scores(q, db, bidx, npad, tl, qc, **kw), 10, flush)
+    plain_ms = time_ms(lambda: gather.gather_plain(q, db, bidx, npad, tl, qc, **kw), 1, flush)
+    isz, (nq, kb) = db.element_size(), bidx.shape
+    nblk = int(torch.unique(bidx[bidx >= 0]).numel())
+    nbytes = (nblk * 128 * (128 * isz + 4) + nq * 128 * q.element_size()
+              + bidx.numel() * 4 * (2 if "scale_sel" in kw else 1) + nq * 4 + nq * kb * 128 * 4)
+    b_ms, b_by = bound(nbytes, 2 * int((bidx >= 0).sum()) * 128 * 128,
+                       {torch.float32: "f32"}.get(db.dtype, mode))
+    return {"dtype": mode, "mode": "f32_rerank" if db.dtype == torch.float32 else
+            ("scale_sel" if kw else "none") + "_ivf_probe", "n": npad, "q": nq, "kb": kb,
+            "distinct_blocks": nblk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def ivf_phase(dev, tmp, e2e_db, flush):
+    """The IVF index on the card (module docstring, phase 13). Returns
+    (readings, launch counts by path, phase-C rows for the kernel table)."""
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch.db.codecs import FlatDB
+    from merizo_search_tpu_torch.ops.fused_scan import fused_topk, selected_scales
+    from merizo_search_tpu_torch.ops.topk import quantize_rows
+    from merizo_search_tpu_torch.search import ivf
+    from merizo_search_tpu_torch.search.engine import SearchEngine
+    from merizo_search_tpu_torch.tools import ivf_curve
+    from merizo_search_tpu_torch.utils import profiling
+
+    out, counts, rows = {}, {}, []
+    # (a) the build and (b) recall and queries/s by nprobe: the port's curve tool
+    st = {}
+    curve = ivf_curve.main(["--log2-rows", str(IVF_ROWS_LOG2), "--nlist", str(IVF_NLIST),
+                            "--k", str(IVF_K), "--q", str(IVF_Q), "--iters", "5"], state=st)
+    emb, q, lay, ref = st["emb"], st["q"], st["ivf"], st["ref"]
+    out["curve"] = curve
+    check(lay["nlist"] == IVF_NLIST and lay["dup"], f"IVF build: {curve['config']}")
+    rk = f"recall_at_{IVF_K}"
+    for dtype in ("bf16", "int8"):
+        pts = [p for p in curve["points"] if p["dtype"] == dtype]
+        check([p["nprobe"] for p in pts] == [4, 8, 16, 32, 64, 128], f"{dtype} curve points")
+        for a, b in zip(pts, pts[1:]):
+            check(b[rk] >= a[rk], f"{dtype}: recall fell from nprobe {a['nprobe']} to "
+                  f"{b['nprobe']}: {a[rk]} -> {b[rk]}")
+        for p in pts:
+            check(p["rerank_" + rk] >= p[rk], f"{dtype} nprobe {p['nprobe']}: rerank recall "
+                  f"{p['rerank_' + rk]} < {p[rk]}")
+    # nprobe = nlist (Q 32) equals the flat fused scan, scores bit for bit
+    d = ivf.resident_layout(emb, lay, torch.bfloat16, dev, rerank=True)
+    q32 = torch.from_numpy(q[:32]).to(dev).to(torch.bfloat16)
+    v, i = ivf.ivf_search(q32, d["db"], d["centroids"], d["perm"], IVF_K, IVF_NLIST, dedup=True)
+    flat = torch.from_numpy(emb).to(dev).to(torch.bfloat16)
+    fv, fi = fused_topk(q32, flat, len(emb), IVF_K)
+    check(torch.equal(v, fv), "IVF at nprobe = nlist: scores differ from the flat fused scan")
+    ties = 0
+    for r in range(32):
+        for x in torch.unique(fv[r]):
+            tied = fv[r] == x
+            ties += int(tied.sum()) if tied.sum() > 1 else 0
+            check(sorted(i[r][tied].tolist()) == sorted(fi[r][tied].tolist()),
+                  "IVF at nprobe = nlist: ids differ from the flat fused scan")
+    out["full_probe"] = {"q": 32, "equal": True, "tied_entries": ties}
+    del flat, v, i, fv, fi
+    # where the time of one search goes (bf16, nprobe 32, Q 256): the card's
+    # busy share and its top kernels under torch.profiler
+    out["profile"] = {}
+    for rerank in (False, True):
+        fn = ivf_curve.search_fn(d, q, IVF_K, IVF_PROBE, rerank, dev)
+        fn()
+        wall, busy, top, _ = device_busy(fn)
+        out["profile"]["rerank" if rerank else "plain"] = {
+            "wall_s": wall, "device_busy_s": busy,
+            "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_s": top}
+    # (c) phase C at the IVF shapes: the probe gather (nprobe 32, KB 320) in
+    # bf16 and int8, and the f32 mode at the rerank shape (Q 256, KB 101)
+    npad = d["db"].shape[0]
+    tl = torch.where(d["perm"] >= 0, 0.0, float("inf")).to(torch.float32)
+    qc = torch.full((IVF_Q,), 3e38, device=dev)
+    qf = torch.from_numpy(q).to(dev)
+    bidx = ivf._probe_blocks(qf.to(torch.bfloat16), d["centroids"], IVF_PROBE,
+                             lay["cluster_rows"] // 128)
+    qb = qf.to(torch.bfloat16)
+    rows.append(gather_row("bf16", qb, d["db"], bidx, npad, tl, qc, flush))
+    scores = ivf.gather_block_scores(qb, d["db"], bidx, npad, tl, qc)
+    _, bidx2 = ivf._rerank_blocks(qf, d["hi"], scores, bidx, tl, qc, IVF_K)
+    check(tuple(bidx2.shape) == (IVF_Q, IVF_K + 1), f"rerank shape {tuple(bidx2.shape)}")
+    rows.append(gather_row("f32", qf, d["hi"], bidx2, npad, tl, qc, flush))
+    check(rows[-1]["max_abs_err"] <= 1e-5, f"f32 mode off by {rows[-1]['max_abs_err']}")
+    del d, scores
+    d8 = ivf.resident_layout(emb, lay, torch.int8, dev)
+    q8 = torch.from_numpy(quantize_rows(q)[0]).to(dev)
+    bidx8 = ivf._probe_blocks(qf, d8["centroids"], IVF_PROBE, lay["cluster_rows"] // 128)
+    rows.append(gather_row("int8", q8, d8["db"], bidx8, npad, tl, qc, flush,
+                           scale_sel=selected_scales(d8["scales"], bidx8)))
+    del d8, tl, qc
+    torch.cuda.empty_cache()
+
+    # the entry points: a DB of these rows, searched by the engine
+    prefix = os.path.join(tmp, "ivf", "db")
+    os.makedirs(os.path.dirname(prefix))
+    rng = np.random.default_rng(47)
+    pool = [walk(rng, int(n)) for n in rng.integers(50, 401, 64)]
+    t = time.perf_counter()
+    idx = np.arange(len(emb), dtype=np.int64)
+    files = write_mmap_tables(prefix, numbered_records(len(emb), "v"), idx % 64, pool, 128)
+    emb.tofile(os.path.join(os.path.dirname(prefix), files["dbfname_IP"]))
+    out["write_db_s"] = time.perf_counter() - t
+    db = FlatDB.open(prefix)
+
+    def recall(idxs):
+        return ivf_curve.recall(np.asarray(idxs), ref)
+
+    # device IVF through the engine (builds and caches the layout; the
+    # second engine opens the cache and holds the f32 sidecar too)
+    eng = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=IVF_NLIST,
+                       ivf_nprobe=IVF_PROBE)
+    eng.search(q[:1], IVF_K)
+    rr = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=IVF_NLIST,
+                      ivf_nprobe=IVF_PROBE, ivf_rerank=True)
+    rr.search(q[:1], IVF_K)
+    check(rr.ivf_build_s is None, "the rerank engine rebuilt the cached layout")
+    reset_counts()                                  # the device-IVF path starts here
+    t = time.perf_counter()
+    dv, di = eng.search(q, IVF_K)
+    rv, ri = rr.search(q, IVF_K)
+    dev_s = time.perf_counter() - t
+    counts["device"] = launch_counts()
+    check(counts["device"]["gather_block_scores"] == 3
+          and counts["device"]["gather_block_scores.f32"] == 1
+          and counts["device"]["blockmax_scan"] == 0,
+          f"device IVF launches: {counts['device']}")
+    dev_pt = next(p for p in curve["points"] if p["dtype"] == "bf16"
+                  and p["nprobe"] == IVF_PROBE)
+    out["device_engine"] = {"build_s": eng.ivf_build_s, "two_searches_s": dev_s,
+                            "recall": recall(di), "rerank_recall": recall(ri),
+                            "tool_recall": dev_pt[rk], "tool_rerank_recall": dev_pt["rerank_" + rk]}
+    # the engine normalises the queries again (a last-bit change can move a
+    # bf16 rounding), so its recall may differ from the tool's in the noise
+    check(abs(out["device_engine"]["recall"] - dev_pt[rk]) <= 0.01,
+          f"engine and tool recall differ: {out['device_engine']}")
+    del eng, rr
+    torch.cuda.empty_cache()
+
+    # (d) stream IVF: the same DB forced to stream (sidecars built here)
+    small = 1e-3                                    # GB: far below the 256 MiB bf16 DB
+    se = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=IVF_NLIST,
+                      ivf_nprobe=IVF_PROBE, max_device_gb=small, stream_block=STREAM_BLOCK)
+    check(se.mode == "stream", "the IVF DB did not stream")
+    se.search(q[:1], IVF_K)                         # builds the disk sidecars
+    reset_counts()                                  # the stream-IVF path starts here
+    sv, si = se.search(q, IVF_K)
+    counts["stream"] = launch_counts()
+    stats = dict(se.stream_stats)
+    for name in ("blockmax_scan", "gather_block_scores"):
+        check(counts["stream"][name] == stats["groups"],
+              f"stream IVF: {name} launched {counts['stream'][name]} times in "
+              f"{stats['groups']} groups")
+    srec = recall(si)
+    check(srec >= out["device_engine"]["recall"], f"stream IVF recall {srec} < device IVF "
+          f"{out['device_engine']['recall']}")
+    t = time.perf_counter()
+    for _ in range(3):
+        se.search(q, IVF_K)
+    batch_s = (time.perf_counter() - t) / 3
+    # at Q 256 the probe union is the whole layout; at Q 8 it is a few
+    # percent of it, staged in coalesced runs across gaps, 64 clusters a
+    # group: that path is held against the same engine on the CPU (the
+    # plain versions, on the same sidecars)
+    qsm, grp = q[:IVF_Q_SMALL], 64 * lay["cluster_rows"]
+    sm = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=IVF_NLIST,
+                      ivf_nprobe=IVF_PROBE, max_device_gb=small, stream_block=grp)
+    reset_counts()                                  # the small-batch stream-IVF path
+    mv, mi = sm.search(qsm, IVF_K)
+    counts["stream_small_q"] = launch_counts()
+    check(sm.ivf_build_s is None, "the small-batch stream engine rebuilt the sidecars")
+    sst = dict(sm.stream_stats)
+    check(sst["staged_share"] < 1 and sst["groups"] > 1,
+          f"stream IVF at Q {IVF_Q_SMALL}: staged {sst['staged_share']} in {sst['groups']} "
+          "groups")
+    for name in ("blockmax_scan", "gather_block_scores"):
+        check(counts["stream_small_q"][name] == sst["groups"],
+              f"stream IVF at Q {IVF_Q_SMALL}: {name} launched "
+              f"{counts['stream_small_q'][name]} times in {sst['groups']} groups")
+    ce = SearchEngine(db, "bf16", "cpu", index="ivf", ivf_nlist=IVF_NLIST,
+                      ivf_nprobe=IVF_PROBE, max_device_gb=small, stream_block=grp)
+    cv, ci = ce.search(qsm, IVF_K)
+    check(ce.stream_stats["clusters"] == sst["clusters"]
+          and ce.stream_stats["groups"] == sst["groups"],
+          f"stream IVF at Q {IVF_Q_SMALL}: the CPU staged {ce.stream_stats['clusters']} "
+          f"clusters in {ce.stream_stats['groups']} groups, the card {sst['clusters']} in "
+          f"{sst['groups']}")
+    small_err = float(np.max(np.abs(mv - cv)))
+    check(small_err <= BF16_TOL, f"stream IVF at Q {IVF_Q_SMALL}: scores off the CPU's by "
+          f"{small_err}")
+    for r in range(IVF_Q_SMALL):
+        cut = cv[r, -1] + 2 * BF16_TOL
+        check(set(mi[r][mv[r] > cut].tolist()) == set(ci[r][cv[r] > cut].tolist()),
+              f"stream IVF at Q {IVF_Q_SMALL}: ids differ from the CPU's (query {r})")
+    small_q = {"q": IVF_Q_SMALL, "stats": sst, "max_abs_err_vs_cpu": small_err,
+               "recall": ivf_curve.recall(mi, ref[:IVF_Q_SMALL])}
+    del sm, ce
+    full = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=IVF_NLIST,
+                        ivf_nprobe=IVF_NLIST, max_device_gb=small, stream_block=STREAM_BLOCK)
+    gv, gi = full.search(q[:32], IVF_K)
+    check(full.ivf_build_s is None, "the full-probe stream engine rebuilt the sidecars")
+    wv, wi = SearchEngine(db, "bf16", "cuda").search(q[:32], IVF_K)
+    check(np.array_equal(gv, wv), "stream IVF at nprobe = nlist: scores differ from the "
+          "device flat scan")
+    for r in range(32):
+        for x in np.unique(wv[r]):
+            tied = wv[r] == x
+            check(sorted(gi[r][tied]) == sorted(wi[r][tied]),
+                  "stream IVF at nprobe = nlist: ids differ from the device flat scan")
+    out["stream"] = {"sidecar_build_s": se.ivf_build_s, "recall": srec, "stats": stats,
+                     "seconds_a_batch": batch_s, "full_probe_equal": True, "small_q": small_q,
+                     "full_probe_stats": dict(full.stream_stats)}
+    del se, full
+
+    # (e) the CLI over the e2e DB: search --search_index ivf, default nprobe
+    reset_counts()                                  # the CLI-IVF path starts here
+    profiling.reset()
+    res = os.path.join(tmp, "res_ivf")
+    cli.main(["search", *e2e_db["pdbs"], e2e_db["prefix"], res, "-k", "10", "-d", "cuda",
+              "--search_index", "ivf", "--mmap_cov_filter", "--output_headers",
+              "--weights", e2e_db["weights"]])
+    torch.cuda.synchronize()
+    counts["cli"] = launch_counts()
+    check(counts["cli"]["gather_block_scores"] > 0, f"CLI IVF launches: {counts['cli']}")
+    first = {}
+    for r in read_tsv(res + "_search.tsv"):
+        first.setdefault(r["query"], r)
+    check(len(first) == len(e2e_db["planted"]), "CLI IVF: queries without hits")
+    for qname, r in first.items():
+        check(r["target"] == e2e_db["planted"][qname],
+              f"CLI IVF: {qname} rank-1 hit is {r['target']}")
+    out["cli"] = {"phase_s": {k: v[0] for k, v in profiling.timings().items()},
+                  "queries": len(first), "planted_rank1": True}
+    return out, counts, rows
 
 
 EASY_LENGTHS = (300, 600, 900, 1500)
@@ -1331,6 +1619,24 @@ def main():
                     f"{k} {v:.3f}" for k, v in r["phase_s"].items()) + f"), launches "
                     f"A {r['launches']['blockmax_scan']} C {r['launches']['gather_block_scores']}")
 
+        with Phase("ivf") as ph:
+            ivf_out, ivf_counts, ivf_rows = ivf_phase(dev, tmp, e2e_db, flush)
+            g_modes += ivf_rows
+            cfg = ivf_out["curve"]
+            ph.notes.append(f"build {cfg['build_s']:.2f} s (" + ", ".join(
+                f"{k} {v:.2f}" for k, v in cfg["build_split_s"].items()) + ")")
+            for p in cfg["points"]:
+                if p["nprobe"] in (8, 32, 128):
+                    ph.notes.append(f"{p['dtype']} nprobe {p['nprobe']}: recall "
+                                    f"{p['recall_at_100']:.4f} / rerank "
+                                    f"{p['rerank_recall_at_100']:.4f}, {p['qps']:.0f} / "
+                                    f"{p['rerank_qps']:.0f} q/s")
+            ss = ivf_out["stream"]
+            ph.notes.append(f"stream: {ss['stats']['staged_share']:.3f} of the layout staged, "
+                            f"{ss['seconds_a_batch']:.3f} s a batch, recall {ss['recall']:.4f}")
+            ph.notes.append(f"f32 rerank phase C {ivf_rows[1]['ms']:.4f} ms (bound "
+                            f"{ivf_rows[1]['bound_ms']:.4f})")
+
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
             its path gives it (search kernels: the e2e bf16 run's Q = 32,
@@ -1348,12 +1654,22 @@ def main():
             entry("blockmax_scan", "merizo_search_tpu_torch/csrc/blockmax.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:65", bm_modes,
                   {"dtype": "bf16", "q": 32, "mask": True, "n": -(-N_MAIN // 128) * 128},
-                  launches["blockmax_scan"], cover=cover),
+                  launches["blockmax_scan"] + sum(c["blockmax_scan"] for c in ivf_counts.values()),
+                  cover=cover, launches_by_path={
+                      "search": launches["blockmax_scan"],
+                      **{f"ivf_{k}": c["blockmax_scan"] for k, c in ivf_counts.items()}}),
             entry("gather_block_scores", "merizo_search_tpu_torch/csrc/gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:644", g_modes,
                   {"dtype": "bf16", "q": 32, "n": -(-N_MAIN // 128) * 128},
-                  launches["gather_block_scores"],
-                  also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)"),
+                  launches["gather_block_scores"]
+                  + sum(c["gather_block_scores"] for c in ivf_counts.values()),
+                  also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)",
+                  launches_by_path={
+                      "search": launches["gather_block_scores"],
+                      **{f"ivf_{k}": c["gather_block_scores"] for k, c in ivf_counts.items()},
+                      "ivf_device_f32_mode": ivf_counts["device"]["gather_block_scores.f32"]},
+                  f32_mode={k: ivf_rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "max_abs_err", "q", "kb")}),
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
                   {"dtype": "bf16", "q": 256, "n": N_BIG},
@@ -1402,11 +1718,13 @@ def main():
                                             "createdb_search": cdb_counts,
                                             **{f"stream_{k}": v for k, v in stream_counts.items()},
                                             **{f"easy_search_{k}": v
-                                               for k, v in easy_counts.items()}},
+                                               for k, v in easy_counts.items()},
+                                            **{f"ivf_{k}": v for k, v in ivf_counts.items()}},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(json.dumps({"createdb": cdb, "segment": seg}), flush=True)
         print(json.dumps({"stream": stream, "easy_search": easy}), flush=True)
         print(json.dumps({"phase_a_split": splits}), flush=True)
+        print(json.dumps({"ivf": ivf_out}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

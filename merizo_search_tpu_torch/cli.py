@@ -11,8 +11,10 @@ The same positionals, flags, defaults and output files as the JAX package's
 verbs (themselves the reference's, merizo.py:33-443), with `-d cuda|cpu`
 choosing the device (default cuda; asking for cuda without a card is an
 error, not a fallback; dbinfo needs no device). `--trace DIR` records a
-torch.profiler trace. Flags of modes the port does not run yet (--mesh,
---search_index ivf, --tmalign_backend tpu) raise NotImplementedError;
+torch.profiler trace. `--search_index ivf [--nprobe N --nlist M
+--ivf_rerank]` searches through the IVF index (device or stream mode).
+Flags of modes the port does not run yet (--mesh, --tmalign_backend tpu)
+raise NotImplementedError;
 ROADMAP.md lists them in the order they come. `serve` is a later slice.
 """
 
@@ -101,10 +103,18 @@ def _add_search_flags(p: argparse.ArgumentParser):
     p.add_argument("--weights", type=str, default=None,
                    help="Path to a Foldclass state dict (.pt).")
     p.add_argument("--search_index", type=str, default="flat",
-                   choices=["flat", "ivf"], help="'ivf' is not ported yet.")
-    p.add_argument("--nprobe", type=int, default=32)
-    p.add_argument("--nlist", type=int, default=0)
-    p.add_argument("--ivf_rerank", action="store_true", default=False)
+                   choices=["flat", "ivf"],
+                   help="'flat' = exact full scan; 'ivf' = balanced-cluster "
+                        "inverted file, probing --nprobe clusters per query "
+                        "(approximate, sublinear).")
+    p.add_argument("--nprobe", type=int, default=32,
+                   help="IVF clusters probed per query.")
+    p.add_argument("--nlist", type=int, default=0,
+                   help="IVF cluster count (0 = ~sqrt(N), a power of two, at least 16).")
+    p.add_argument("--ivf_rerank", action="store_true", default=False,
+                   help="IVF: rescore the top-(k+1) probed blocks from an f32 "
+                        "copy of the DB on the device (+4 bytes a dim a row), "
+                        "removing the storage precision's ranking noise.")
     p.add_argument("--mmap_cov_filter", action="store_true", default=False,
                    help="Apply the -c/--mincov coverage filters on mmap "
                         "databases too (the reference never implemented "
@@ -156,7 +166,6 @@ def _merizo_kw(args):
 
 def _reject_unported(args):
     unported = [(args.mesh, "--mesh"),
-                (args.search_index != "flat", "--search_index ivf"),
                 (args.tmalign_backend == "tpu", "--tmalign_backend tpu")]
     for given, flag in unported:
         if given:
@@ -207,7 +216,9 @@ def _do_search(args, inputs, inputs_are_ca, pdb_chain, fields_default):
         inputs_are_ca=inputs_are_ca, pdb_chain=pdb_chain,
         skip_tmalign=args.skip_tmalign, search_batchsize=args.search_batchsize,
         model=model, threads=max(args.threads, 0), precision=args.precision,
-        mmap_cov_filter=args.mmap_cov_filter, device=args.device)
+        search_index=args.search_index, nprobe=args.nprobe, nlist=args.nlist,
+        ivf_rerank=args.ivf_rerank, mmap_cov_filter=args.mmap_cov_filter,
+        device=args.device)
 
     with profiling.phase("write_results"):
         write_search_results(results, search_output, fields,

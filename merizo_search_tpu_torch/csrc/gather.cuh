@@ -10,6 +10,8 @@
 //   - no scales:           out = score                       (bf16, or raw int8)
 //   - scale_sel [Q, KB]:   out = score * scale_sel[q, col]   (int8, production)
 //   - scales [Npad]:       out = score * scales[row]         (per-row mode)
+// The f32 mode (at the end of this file) has a body of its own on the CUDA
+// cores, with the same masks and layout.
 // out[q, col*128 + r] is the score of row bidx[q, col]*128 + r, or NEG_CAP
 // where bidx is -1 (padding), the row is >= n_valid, the length channel
 // masks it (!(tl[row] <= qcap[q])), or the score is NaN.
@@ -133,6 +135,94 @@ gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
             long long n_valid, int qi, int group) {
   gather_cols<T>(smem, q, db, tl, qcap, bidx, scale_sel, scales, out, kb, n_valid,
                  qi, group * GROUP, min(kb, (group + 1) * GROUP), true);
+}
+
+// ---------------------------------------------------------------------------
+// Phase C on f32 rows: the mode of the TPU kernel in `gather_block_scores_dma`
+// that the JAX package's IVF rerank runs on its f32 sidecar (search/ivf.py
+// `_rerank_blocks`: the top-(k+1) probed blocks rescored exactly in f32).
+// The contract is gather_cols's, masks and layout included; only the dot
+// differs. Tensor cores would take f32 only as TF32, which keeps ~3 decimal
+// digits, so the score is a plain FFMA chain on the CUDA cores: the query in
+// shared memory, one row per thread, k = 0..127 in order from a zero
+// accumulator (a fixed order, so a row scores the same float wherever it
+// lies). A row is 128 FMAs on 512 bytes (0.5 FLOP a byte), so the 64 KB of
+// each selected block, scattered but contiguous, bound it by bytes.
+//
+// Design: one CTA of 128 threads per (query, GROUP columns), as the bf16 and
+// int8 modes; blocks staged by cp.async into a ring of two Slot<F32> slots
+// (pitch 528 bytes: the eight 16-byte loads of a quarter-warp at the same k
+// fall in distinct bank groups), one block in flight while one is scored.
+// Two 68 KB slots leave one CTA an SM.
+struct F32 {
+  using In = float;
+  static constexpr int GSTAGES = 2;
+};
+
+inline size_t gather_f32_smem() {
+  return (size_t)F32::GSTAGES * Slot<F32>::BYTES + DIM * sizeof(float);
+}
+
+__device__ __forceinline__ void
+gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
+                const float* __restrict__ db, const float* __restrict__ tl,
+                const float* __restrict__ qcap, const int* __restrict__ bidx,
+                const float* __restrict__ scale_sel, const float* __restrict__ scales,
+                float* __restrict__ out, int kb, long long n_valid, int qi,
+                int c_begin, int c_end) {
+  constexpr int S = F32::GSTAGES;
+  using SL = Slot<F32>;
+  float* qs = reinterpret_cast<float*>(smem + S * SL::BYTES);
+  for (int d = threadIdx.x; d < DIM; d += blockDim.x) qs[d] = q[(long long)qi * DIM + d];
+  const float qc = tl != nullptr ? qcap[qi] : 0.f;
+  const int ncol = max(0, c_end - c_begin);
+  auto block_of = [&](int c) { return bidx[(long long)qi * kb + c]; };
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < ncol) {
+      const int b = block_of(c_begin + st);
+      if (b >= 0) load_block<F32>(smem + st * SL::BYTES, db, tl, b);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < ncol; ++i) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // column i has landed (and qs is written); slot (i-1) % S is free
+    if (i + S - 1 < ncol) {
+      const int b = block_of(c_begin + i + S - 1);
+      if (b >= 0) load_block<F32>(smem + ((i + S - 1) % S) * SL::BYTES, db, tl, b);
+    }
+    cp_async_commit();
+
+    const long long sel = (long long)qi * kb + c_begin + i;
+    const int b = block_of(c_begin + i);
+    float* o = out + sel * BLOCK;
+    const int r = threadIdx.x;
+    if (r >= BLOCK) continue;
+    if (b < 0) {
+      o[r] = NEG_CAP;
+      continue;
+    }
+    const unsigned char* slot = smem + (i % S) * SL::BYTES;
+    const float4* row = reinterpret_cast<const float4*>(slot + r * SL::PITCH);
+    float s = 0.f;
+#pragma unroll 8
+    for (int k4 = 0; k4 < DIM / 4; ++k4) {
+      const float4 x = row[k4];
+      s = fmaf(x.x, qs[4 * k4], s);
+      s = fmaf(x.y, qs[4 * k4 + 1], s);
+      s = fmaf(x.z, qs[4 * k4 + 2], s);
+      s = fmaf(x.w, qs[4 * k4 + 3], s);
+    }
+    const long long rowi = (long long)b * BLOCK + r;
+    bool keep = rowi < n_valid;
+    if (tl != nullptr) keep = keep && reinterpret_cast<const float*>(slot + SL::TL)[r] <= qc;
+    if (scale_sel != nullptr) s *= scale_sel[sel];
+    if (scales != nullptr) s *= scales[rowi];
+    o[r] = (keep && s == s) ? s : NEG_CAP;
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace mst

@@ -7,7 +7,9 @@ of the JAX package (the one in `gather_block_scores_dma`, with the caller's
 per-selected-block scales, and the one in `gather_block_scores`, with
 per-row scales in the kernel) through one scale mode argument.
 
-Contract (both versions): q [Q, 128], db [Npad, 128] of one dtype, bidx
+Contract (both versions): q [Q, 128], db [Npad, 128] of one dtype (bf16,
+int8, or f32: the IVF rerank's sidecar, scored by an FFMA body on the CUDA
+cores since tensor cores would round f32 to TF32), bidx
 [Q, KB] int32 block ids (-1 = padding). Returns float32 [Q, KB*128] with
 out[q, c*128 + r] = score(q, row) for row = bidx[q, c]*128 + r, times
   - nothing (no scales),
@@ -24,7 +26,10 @@ import torch
 from .blockmax import NEG_CAP, _DTYPE_CODE
 from .topk import BLOCK
 
+_GATHER_CODE = {**_DTYPE_CODE, torch.float32: 2}
+
 launches = 0   # kernel launches since the last reset (plain runs not counted)
+launches_f32 = 0   # of which in the f32 mode (the IVF rerank)
 
 
 def _validate(q, db, bidx, tl, qcap, scale_sel, scales):
@@ -71,7 +76,7 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
                         scale_sel=None, scales=None):
     """Phase C: [Q, KB*128] float32 (module docstring). CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain version."""
-    global launches
+    global launches, launches_f32
     _validate(q, db, bidx, tl, qcap, scale_sel, scales)
     if q.device.type == "cpu":
         return gather_plain(q, db, bidx, n_valid, tl, qcap, scale_sel, scales)
@@ -79,8 +84,8 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
 
     nq, kb = bidx.shape
     npad = db.shape[0]
-    if db.dtype not in _DTYPE_CODE:
-        raise TypeError(f"gather kernel takes bf16 or int8, got {db.dtype}")
+    if db.dtype not in _GATHER_CODE:
+        raise TypeError(f"gather kernel takes bf16, int8 or f32, got {db.dtype}")
     dev = q.device
     args = [_build.ptr(q, "q", db.dtype, device=dev),
             _build.ptr(db, "db", db.dtype, device=dev),
@@ -93,8 +98,9 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
     if nq == 0 or kb == 0:
         return out
     rc = _build.library().mst_gather_block_scores(
-        _DTYPE_CODE[db.dtype], *args, out.data_ptr(), nq, kb, int(n_valid),
+        _GATHER_CODE[db.dtype], *args, out.data_ptr(), nq, kb, int(n_valid),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "gather_block_scores")
     launches += 1
+    launches_f32 += db.dtype == torch.float32
     return out

@@ -8,7 +8,8 @@ len(query) >= len(target) * mincov), with -inf scores for masked entries.
 
 `quantize_rows` / `quantize_blocks` are numpy copies of the JAX package's
 quantisers, so DBs and queries quantise to the same bytes in both packages.
-`merge_partials` merges the stream mode's per-superblock top-k.
+`merge_partials` merges the stream mode's per-superblock top-k;
+`query_operands` puts a query batch on the device as the scans take it.
 """
 
 from __future__ import annotations
@@ -81,6 +82,15 @@ def quantize_rows(x: np.ndarray):
     s = np.where(a > 0, a / 127.0, 1.0).astype(np.float32)
     qv = np.clip(np.rint(x / s[:, None]), -127, 127).astype(np.int8)
     return qv, s
+
+
+def query_operands(q: np.ndarray, dtype: torch.dtype, device):
+    """Unit queries [Q, D] f32 on `device` in the scan's storage dtype,
+    and for int8 their per-row scales: (q, scales or None)."""
+    if dtype == torch.int8:
+        q8, qs = quantize_rows(q)
+        return torch.from_numpy(q8).to(device), torch.from_numpy(qs).to(device)
+    return torch.from_numpy(q).to(device).to(dtype), None
 
 
 def quantize_blocks(x: np.ndarray, block: int = BLOCK):

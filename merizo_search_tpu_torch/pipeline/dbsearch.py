@@ -59,7 +59,8 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
                  skip_tmalign: bool = False, search_batchsize: int = 2 ** 21,
                  model=None, weights: str | None = None,
                  engine: SearchEngine | None = None,
-                 threads: int = 0, precision: str = "bf16",
+                 threads: int = 0, precision: str = "bf16", search_index: str = "flat",
+                 nprobe: int = 32, nlist: int = 0, ivf_rerank: bool = False,
                  mmap_cov_filter: bool = False, device: str = "cuda"):
     """Search queries against a database.
 
@@ -68,7 +69,8 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
     segmenter). model: a loaded FoldClassNet (else loaded from `weights`
     onto `device`). engine: a prebuilt SearchEngine over the DB (else one
     is opened at `precision`, streaming superblocks of `search_batchsize`
-    rows when the DB exceeds the device budget). Returns (search_results,
+    rows when the DB exceeds the device budget, with the `search_index`
+    "flat" or "ivf" and the IVF's nprobe, nlist and ivf_rerank). Returns (search_results,
     all_search_results): per query, a dict {rank: hit_dict} of significant
     / insignificant hits.
     """
@@ -81,7 +83,8 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
 
     if engine is None:
         engine = SearchEngine(FlatDB.open(db_name), dtype=precision, device=device,
-                              stream_block=search_batchsize)
+                              stream_block=search_batchsize, index=search_index,
+                              ivf_nlist=nlist, ivf_nprobe=nprobe, ivf_rerank=ivf_rerank)
     db = engine.db
     use_cov_filters = db.kind == "pt" or mmap_cov_filter
 

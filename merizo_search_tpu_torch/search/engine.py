@@ -1,6 +1,6 @@
-"""The search engine: exact cosine top-k over a Foldclass DB.
+"""The search engine: cosine top-k over a Foldclass DB.
 
-Two of the JAX package's engine modes:
+The JAX package's engine modes on one device:
 
 - "device": the whole DB lives in the memory of one device in its storage
   precision, with the per-row target lengths beside it for the mincov
@@ -11,34 +11,48 @@ Two of the JAX package's engine modes:
   pool, staged to the card and merged once at the end
   (`ops/topk.merge_partials`).
 
-Both modes scan with the same functions, so their results are equal
-(indices may differ only where scores tie):
+and two indexes over each (`index`):
 
-- bf16 and int8 go through the fused scan (ops/fused_scan.py: the phase-A
-  and phase-C CUDA kernels on the card). int8 stores the DB with
-  block-uniform scales (`quantize_blocks`, or the DB's int8 sidecar), the
-  queries with per-row scales (`quantize_rows`, once a search), and
-  dequantises the returned scores per query.
-- fp32 goes through the plain exact scan (ops/topk.topk_scan), as the JAX
-  package leaves f32 to XLA.
+- "flat": the exact scan. bf16 and int8 go through the fused scan
+  (ops/fused_scan.py: the phase-A and phase-C CUDA kernels on the card).
+  int8 stores the DB with block-uniform scales (`quantize_blocks`, or the
+  DB's int8 sidecar), the queries with per-row scales (`quantize_rows`,
+  once a search), and dequantises the returned scores per query. fp32
+  goes through the plain exact scan (ops/topk.topk_scan), as the JAX
+  package leaves f32 to XLA. Both modes scan with the same functions, so
+  their results are equal (indices may differ only where scores tie).
+- "ivf": the balanced inverted file of search/ivf.py. In device mode the
+  DB is resident in its cluster-contiguous permuted layout (built once and
+  cached next to the DB as `.ivf{nlist}.npz`, keyed by a fingerprint of
+  the DB file), and a search runs phase C on the probed clusters' blocks
+  (`ivf_search`; `ivf_rerank` adds an f32 sidecar that rescores the top
+  blocks through phase C's f32 mode). In stream mode the layout is
+  persisted as disk sidecars (`.ivfdisk{nlist}.{precision}.*`) and each
+  search stages only the union of the batch's probed clusters, in
+  coalesced runs, through the same staging as the flat stream, running
+  the fused scan on each group of clusters.
 
 On the card the stream mode stages through a ring of pinned host buffers,
-which the pool's threads fill straight from the memmap; each superblock is
+which the pool's threads fill straight from the memmap; each item is
 copied on a side stream into one of three device slots and scanned on the
-current stream once its copy's event has fired, so the scan of superblock
-i overlaps the copy of i+1 and the host reads of the ones after it. A
-pinned buffer is refilled only after its copy's event has completed, a
-device slot is rewritten only after the scan that read it, and the host
-waits on the scan two superblocks back (the JAX engine's backpressure).
-Nothing in the loop reads a device value; the one sync is the final copy
-of the merged top-k to the host.
+current stream once its copy's event has fired, so the scan of item i
+overlaps the copy of i+1 and the host reads of the ones after it. A pinned
+buffer is refilled only after its copy's event has completed, a device
+slot is rewritten only after the scan that read it, and the host waits on
+the scan two items back (the JAX engine's backpressure). Nothing in the
+loop reads a device value; the stream IVF reads its probe union before
+the loop, and both read the merged top-k once at the end.
 
-The IVF and mesh modes are later slices of the port (ROADMAP.md, queue 1):
-the CLI rejects their flags.
+Lazy builds (residency, the IVF layout, the disk sidecars) run under a
+lock with double-checked state, so threads that search one fresh engine
+build once; the disk sidecars also take an `fcntl` lock on a `.lock` file
+beside them, so two processes sharing a DB do not interleave their writes.
+The mesh mode is a later slice of the port (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import fcntl
 import logging
 import os
 import threading
@@ -54,6 +68,7 @@ from ..device import resolve_device
 from ..ops import topk as topk_ops
 from ..ops.fused_scan import fused_topk
 from ..utils import profiling
+from . import ivf as ivf_mod
 
 logger = logging.getLogger(__name__)
 
@@ -62,6 +77,7 @@ _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _STAGE = 1 << 18   # rows per host staging chunk (128 MB of f32 at dim 128)
 MAX_DEVICE_GB = 8.0  # the JAX engine's device-mode budget; larger DBs stream
 DEVICE_SLOTS = 3     # superblocks on the card at once in stream mode
+_DISK_PRECISION = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _normalize_rows(x: np.ndarray) -> np.ndarray:
@@ -111,46 +127,73 @@ def _ordered_prefetch(items, fn, threads: int | None = None):
 
 
 class SearchEngine:
-    """Exact top-k search over a FlatDB.
+    """Top-k search over a FlatDB.
 
     dtype: "fp32", "bf16" or "int8" (or the torch dtype): the on-device
     storage of the DB. device: "cuda" (default) or "cpu". max_device_gb:
     the device-mode budget; a DB larger than it in its storage dtype runs
     the stream mode in superblocks of stream_block rows (int8: rounded down
-    to a multiple of 128, so superblocks start on scale blocks).
+    to a multiple of 128, so superblocks start on scale blocks; stream IVF:
+    groups of whole clusters, at least one).
+    index: "flat" (exact) or "ivf". ivf_nlist: clusters (0: ~sqrt(N), a
+    power of two, at least 16); ivf_nprobe: clusters probed a query;
+    ivf_rerank: rescore the top blocks from an f32 sidecar in device mode
+    (+4 bytes a dim a row of device memory; values are then exact f32).
     """
 
     def __init__(self, db: FlatDB, dtype="bf16", device="cuda",
-                 max_device_gb: float = MAX_DEVICE_GB, stream_block: int = 2 ** 21):
+                 max_device_gb: float = MAX_DEVICE_GB, stream_block: int = 2 ** 21,
+                 index: str = "flat", ivf_nlist: int = 0, ivf_nprobe: int = 32,
+                 ivf_rerank: bool = False):
         self.db = db
         self.dtype = DTYPES.get(dtype, dtype)
         if self.dtype not in _ITEMSIZE:
             raise ValueError(f"unsupported storage dtype {dtype!r}")
+        if index not in ("flat", "ivf"):
+            raise ValueError(f"unknown index type: {index}")
         self.device = resolve_device(device)
         db_bytes = db.size * db.dim * _ITEMSIZE[self.dtype]
         self.mode = "device" if db_bytes <= max_device_gb * (1 << 30) else "stream"
         self.stream_block = stream_block
-        # the last stream search's readings: superblocks, rows/s, the pool's
-        # staging seconds (summed over threads), the consumer's wait for it,
-        # and on the card the copies' and the scans' spans (CUDA events on
-        # the side and compute streams; a scan's span includes the host's
-        # gaps between its launches)
+        self.index = index
+        self.ivf_nprobe = ivf_nprobe
+        self.ivf_rerank = ivf_rerank
+        self.ivf_nlist = ivf_nlist or max(16, 1 << int(
+            np.ceil(np.log2(max(np.sqrt(db.size), 16)))))
+        # the last stream search's readings: superblocks (stream IVF: cluster
+        # groups, clusters and rows staged), rows/s, the pool's staging
+        # seconds (summed over threads), the consumer's wait for it, and on
+        # the card the copies' and the scans' spans (CUDA events on the side
+        # and compute streams; a scan's span includes the host's gaps
+        # between its launches)
         self.stream_stats = None
+        self.ivf_build_s = None   # seconds of the IVF build, when this engine built one
+        self._init_lock = threading.Lock()
         self._demb = None
+        self._ivf = None
+        self._sivf = None
 
     # -- residency ----------------------------------------------------------
     def _load_resident(self):
-        """Copy the DB to the device in its storage dtype, padded to a
-        multiple of 128 rows (padding rows are zeros with length 1e9, so
-        the length channel masks them too). int8 reads the DB's int8
-        sidecar where there is one, else quantises f32 rows per 128-row
-        block; bf16 reads the bf16 sidecar where there is one."""
+        """Copy the DB to the device in its storage dtype, once (double-
+        checked under the lock), padded to a multiple of 128 rows (padding
+        rows are zeros with length 1e9, so the length channel masks them
+        too). int8 reads the DB's int8 sidecar where there is one, else
+        quantises f32 rows per 128-row block; bf16 reads the bf16 sidecar
+        where there is one. index="ivf" loads the permuted layout instead
+        (_load_ivf_resident)."""
         if self._demb is not None:
             return
-        with profiling.phase("db_resident"):
-            self._load_resident_now()
+        with self._init_lock:
+            if self._demb is not None:
+                return
+            with profiling.phase("db_resident"):
+                self._load_resident_now()
 
     def _load_resident_now(self):
+        if self.index == "ivf":
+            self._load_ivf_resident()
+            return
         t0 = time.time()
         db, n, dim = self.db, self.db.size, self.db.dim
         npad = -(-n // topk_ops.BLOCK) * topk_ops.BLOCK
@@ -182,10 +225,86 @@ class SearchEngine:
         lengths[:n] = db.lengths()
         self._dlen = torch.from_numpy(lengths).to(self.device)
         self._n_valid = n
-        self._demb = demb
+        self._demb = demb           # last: the double-checked state
         logger.info("DB resident on %s: %d rows %s (%.2f GB, %.2fs)", self.device,
                     n, str(self.dtype).replace("torch.", ""),
                     demb.numel() * demb.element_size() / 2 ** 30, time.time() - t0)
+
+    def _ivf_layout(self, emb) -> dict:
+        """The IVF layout of this DB: the `.ivf{nlist}.npz` cache next to an
+        on-disk DB when its fingerprint matches (a DB rebuilt under the same
+        prefix must not reuse a stale permutation), else a fresh build,
+        published to the cache by tmp + rename. The cache's keys and
+        fingerprint are the JAX package's, so either package opens the
+        other's."""
+        prefix = getattr(self.db, "prefix", None)
+        cache = f"{prefix}.ivf{self.ivf_nlist}.npz" if prefix else None
+        fp = self._db_fingerprint()
+        if cache and os.path.exists(cache):
+            z = np.load(cache)
+            if "fingerprint" in z and np.array_equal(z["fingerprint"], fp):
+                logger.info("IVF loaded from %s", cache)
+                return {"centroids": z["centroids"], "perm": z["perm"],
+                        "cluster_rows": int(z["cluster_rows"]),
+                        "nlist": int(z["centroids"].shape[0]),
+                        # caches from before multi-assignment hold layouts
+                        # without duplicates: dedup stays off for them
+                        "dup": bool(z["dup"]) if "dup" in z else False}
+            logger.warning("IVF cache %s is stale (database changed since the "
+                           "build); rebuilding", cache)
+        t0 = time.perf_counter()
+        ivf = ivf_mod.build_ivf(emb, self.ivf_nlist, device=self.device)
+        self.ivf_build_s = time.perf_counter() - t0
+        if cache:
+            tmp = f"{cache}.tmp{os.getpid()}"
+            try:
+                with open(tmp, "wb") as fh:
+                    np.savez(fh, centroids=ivf["centroids"], perm=ivf["perm"],
+                             cluster_rows=ivf["cluster_rows"], dup=ivf["dup"],
+                             fingerprint=fp)
+                os.replace(tmp, cache)
+            except OSError as e:
+                logger.warning("could not cache IVF build: %s", e)
+        return ivf
+
+    def _load_ivf_resident(self):
+        """The DB on the device in its permuted IVF layout
+        (ivf.resident_layout: the storage dtype, permuted lengths, and with
+        ivf_rerank the f32 sidecar), _STAGE permuted rows at a time."""
+        t0 = time.time()
+        emb = self._normalised_embeddings()
+        ivf = self._ivf_layout(emb)
+        lay = ivf_mod.resident_layout(emb, ivf, self.dtype, self.device,
+                                      lengths=self.db.lengths(), rerank=self.ivf_rerank,
+                                      slab=_STAGE)
+        self.ivf_nlist = int(ivf["centroids"].shape[0])   # the build may clamp
+        self._ivf = lay
+        self._demb = lay["db"]      # last: the double-checked state
+        logger.info("IVF DB resident on %s: %d rows in %d clusters of %d (%.2f GB, %.2fs)",
+                    self.device, self.db.size, self.ivf_nlist, ivf["cluster_rows"],
+                    self._demb.numel() * self._demb.element_size() / 2 ** 30, time.time() - t0)
+
+    def _normalised_embeddings(self):
+        """Unit-norm embeddings for index builds: the mmap layout is stored
+        normalised (its memmap is used as is, rows fancy-indexed in bounded
+        slabs); a pt DB (small) is materialised and normalised."""
+        if self.db.normalised:
+            return self.db.embeddings()
+        return _normalize_rows(np.asarray(self.db.embeddings(), dtype=np.float32))
+
+    def _db_fingerprint(self) -> np.ndarray:
+        """A cheap identity of the DB's content for the staleness checks of
+        the IVF cache and sidecars: (rows, dim, embeddings-file size,
+        embeddings-file mtime), as the JAX package computes it."""
+        f = getattr(self.db.embeddings(), "filename", None)
+        if f is None:
+            prefix = getattr(self.db, "prefix", None)
+            f = prefix + ".pt" if prefix else None
+        fsz = mt = 0
+        if f and os.path.exists(f):
+            st = os.stat(f)
+            fsz, mt = st.st_size, int(st.st_mtime)
+        return np.asarray([self.db.size, self.db.dim, fsz, mt], np.int64)
 
     # -- public API ---------------------------------------------------------
     def search(self, query_embs: np.ndarray, k: int,
@@ -200,31 +319,28 @@ class SearchEngine:
         use_len = query_lens is not None and mincov > 0.0
         qlen = torch.from_numpy(np.asarray(
             query_lens if use_len else np.zeros(q.shape[0]), np.float32)).to(self.device)
-        if self.mode == "stream":
+        if self.mode == "stream" and self.index == "ivf":
+            vals, idxs = self._stream_ivf_search(q, k_eff, qlen, float(mincov), use_len)
+        elif self.mode == "stream":
             vals, idxs = self._stream_search(q, k_eff, qlen, float(mincov), use_len)
+        elif self.index == "ivf":
+            self._load_resident()
+            vals, idxs = self._ivf_search(q, k_eff, qlen, float(mincov), use_len)
         else:
             self._load_resident()
-            vals, idxs = self._scan(self._query_operands(q), self._demb, self._n_valid,
+            query = topk_ops.query_operands(q, self.dtype, self.device)
+            vals, idxs = self._scan(query, self._demb, self._n_valid,
                                     k_eff, self._dlen, qlen, float(mincov), use_len,
                                     self._dscale if self.dtype == torch.int8 else None)
         vals = vals.cpu().numpy().astype(np.float32)
         idxs = idxs.cpu().numpy()
         idxs = np.where(np.isfinite(vals), idxs, -1)
-        if k_eff < k:
-            pad_v = np.full((q.shape[0], k - k_eff), -np.inf, np.float32)
-            pad_i = np.full((q.shape[0], k - k_eff), -1, idxs.dtype)
+        if vals.shape[1] < k:
+            pad_v = np.full((q.shape[0], k - vals.shape[1]), -np.inf, np.float32)
+            pad_i = np.full((q.shape[0], k - vals.shape[1]), -1, idxs.dtype)
             vals = np.concatenate([vals, pad_v], axis=1)
             idxs = np.concatenate([idxs, pad_i], axis=1)
         return vals, idxs
-
-    def _query_operands(self, q: np.ndarray):
-        """The queries on the device in the scan's dtype, and for int8 their
-        per-row scales: (q, scales or None)."""
-        if self.dtype == torch.int8:
-            q8, qs = topk_ops.quantize_rows(q)
-            return (torch.from_numpy(q8).to(self.device),
-                    torch.from_numpy(qs).to(self.device))
-        return torch.from_numpy(q).to(self.device).to(self.dtype), None
 
     def _scan(self, query, rows, n_valid: int, k: int, tlen, qlen, mincov: float,
               use_len: bool, scales):
@@ -243,6 +359,13 @@ class SearchEngine:
             vals = vals * qs[:, None]
         return vals, idxs
 
+    def _ivf_search(self, q, k, qlen, mincov, use_len):
+        """Device-mode IVF (ivf.search_resident) on the resident layout."""
+        return ivf_mod.search_resident(
+            self._ivf, torch.from_numpy(q).to(self.device),
+            topk_ops.query_operands(q, self.dtype, self.device), k, self.ivf_nprobe,
+            qlen=qlen, mincov=mincov, use_len=use_len, rerank=self.ivf_rerank)
+
     # -- streaming ----------------------------------------------------------
     def _superblock_rows(self) -> int:
         block = max(1, int(self.stream_block))
@@ -253,10 +376,10 @@ class SearchEngine:
         return block
 
     def _staging_buffers(self, rows: int, use_len: bool, device=None,
-                         pin: bool = False) -> dict:
-        """One superblock's buffers on the host (pinned on request) or on
-        `device`: rows in the storage dtype, and the int8 scales and target
-        lengths where they are used."""
+                         pin: bool = False, perm: bool = False) -> dict:
+        """One item's buffers on the host (pinned on request) or on
+        `device`: rows in the storage dtype, and the int8 scales, target
+        lengths and (stream IVF) permuted row ids where they are used."""
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device, pin_memory=pin)
 
@@ -265,6 +388,8 @@ class SearchEngine:
             buf["scales"] = empty((rows,), torch.float32)
         if use_len:
             buf["tlen"] = empty((rows,), torch.float32)
+        if perm:
+            buf["perm"] = empty((rows,), torch.int64)
         return buf
 
     def _fill(self, buf: dict, off: int, block: int, lengths) -> tuple[int, int]:
@@ -298,16 +423,18 @@ class SearchEngine:
             tl[nb:npad] = 1e9
         return nb, npad
 
-    def _stream_search(self, q, k, qlen, mincov, use_len):
-        """Scan the DB superblock by superblock and merge the partial top-k
-        (module docstring). Returns device tensors (vals [Q, k], idxs)."""
-        t0 = time.perf_counter()
-        n, block, dev = self.db.size, self._superblock_rows(), self.device
-        lengths = self.db.lengths().astype(np.float32) if use_len else None
-        query = self._query_operands(q)          # int8: quantised once
+    def _staged_scans(self, items, rows_cap: int, use_len: bool, fill, scan,
+                      perm: bool = False) -> dict:
+        """For each item in order: fill(host buffers, item) -> (npad, meta)
+        on the staging pool, then scan(device buffers cut to npad rows,
+        meta) on the consumer (module docstring: the pinned ring, the side
+        stream, three device slots, backpressure two items back). Returns
+        the readings: items, the pool's staging seconds, the consumer's
+        wait, and a function that gives, once the caller has synchronised
+        (on the card), the copies' and the scans' spans."""
+        dev = self.device
         cuda = dev.type == "cuda"
         threads = stage_threads()
-        rows_cap = -(-block // topk_ops.BLOCK) * topk_ops.BLOCK
         stage_s, lock = [0.0], threading.Lock()
 
         if cuda:
@@ -317,33 +444,32 @@ class SearchEngine:
             # with ring = threads + 2 the slot's last copy has its event
             # recorded by then, and the filler waits on it before writing
             ring = threads + 2
-            host = [self._staging_buffers(rows_cap, use_len, pin=True) for _ in range(ring)]
+            host = [self._staging_buffers(rows_cap, use_len, pin=True, perm=perm)
+                    for _ in range(ring)]
             copied = [None] * ring
-            slots = [self._staging_buffers(rows_cap, use_len, dev)
+            slots = [self._staging_buffers(rows_cap, use_len, dev, perm=perm)
                      for _ in range(DEVICE_SLOTS)]
             scanned = [None] * DEVICE_SLOTS
             side = torch.cuda.Stream(dev)
             main = torch.cuda.current_stream(dev)
 
-        def prepare(item):
-            i, off = item
+        def prepare(entry):
+            i, item = entry
             t = time.perf_counter()
             if cuda:
                 if copied[i % ring] is not None:
                     copied[i % ring].synchronize()
                 buf = host[i % ring]
             else:
-                buf = self._staging_buffers(
-                    min(rows_cap, -(-(n - off) // topk_ops.BLOCK) * topk_ops.BLOCK), use_len)
-            nb, npad = self._fill(buf, off, block, lengths)
+                buf = self._staging_buffers(rows_cap, use_len, perm=perm)
+            npad, meta = fill(buf, item)
             with lock:
                 stage_s[0] += time.perf_counter() - t
-            return i, off, nb, npad, buf
+            return i, npad, meta, buf
 
-        parts_v, parts_i, timing = [], [], []
+        timing, n_items = [], 0
         wait_s, t_wait = 0.0, time.perf_counter()
-        for i, off, nb, npad, buf in _ordered_prefetch(
-                enumerate(range(0, n, block)), prepare, threads):
+        for i, npad, meta, buf in _ordered_prefetch(enumerate(items), prepare, threads):
             wait_s += time.perf_counter() - t_wait
             if cuda:
                 d = slots[i % DEVICE_SLOTS]
@@ -360,35 +486,191 @@ class SearchEngine:
                 ev[2].record(main)
             else:
                 d = buf
-            vals, idxs = self._scan(
-                query, d["rows"][:npad], nb, min(k, nb),
-                d["tlen"][:npad] if use_len else None, qlen, mincov, use_len,
-                d["scales"][:npad] if self.dtype == torch.int8 else None)
-            parts_v.append(vals)
-            parts_i.append(torch.where(idxs >= 0, idxs + off, idxs))
+            scan({key: t[:npad] for key, t in d.items()}, meta)
+            n_items += 1
             if cuda:
                 ev[3].record(main)
                 scanned[i % DEVICE_SLOTS] = ev[3]
                 timing.append(ev)
                 if len(timing) >= 3:
                     # backpressure, as in the JAX engine: the host waits on
-                    # the scan two superblocks back
+                    # the scan two items back
                     timing[-3][3].synchronize()
             t_wait = time.perf_counter()
 
+        def spans():
+            return {"copy_s": sum(e[0].elapsed_time(e[1]) for e in timing) / 1e3 if cuda
+                    else None,
+                    "scan_s": sum(e[2].elapsed_time(e[3]) for e in timing) / 1e3 if cuda
+                    else None}
+
+        return {"items": n_items, "stage_thread_s": stage_s[0],
+                "consumer_wait_s": wait_s}, spans
+
+    @staticmethod
+    def _merge(parts_v, parts_i, k: int):
+        """One top-k over the partial results [Q, k'] (device tensors)."""
         kk = max(v.shape[1] for v in parts_v)
         pv = torch.stack([torch.nn.functional.pad(v, (0, kk - v.shape[1]), value=float("-inf"))
                           for v in parts_v])
         pi = torch.stack([torch.nn.functional.pad(x, (0, kk - x.shape[1]), value=-1)
                           for x in parts_i])
-        vals, idxs = topk_ops.merge_partials(pv, pi, min(k, n))
+        return topk_ops.merge_partials(pv, pi, k)
+
+    def _stream_search(self, q, k, qlen, mincov, use_len):
+        """Scan the DB superblock by superblock and merge the partial top-k
+        (module docstring). Returns host tensors (vals [Q, k], idxs)."""
+        t0 = time.perf_counter()
+        n, block = self.db.size, self._superblock_rows()
+        lengths = self.db.lengths().astype(np.float32) if use_len else None
+        # int8: quantised once
+        query = topk_ops.query_operands(q, self.dtype, self.device)
+        parts_v, parts_i = [], []
+
+        def fill(buf, off):
+            nb, npad = self._fill(buf, off, block, lengths)
+            return npad, (off, nb)
+
+        def scan(d, meta):
+            off, nb = meta
+            vals, idxs = self._scan(query, d["rows"], nb, min(k, nb), d.get("tlen"), qlen,
+                                    mincov, use_len, d.get("scales"))
+            parts_v.append(vals)
+            parts_i.append(torch.where(idxs >= 0, idxs + off, idxs))
+
+        rows_cap = -(-block // topk_ops.BLOCK) * topk_ops.BLOCK
+        st, spans = self._staged_scans(range(0, n, block), rows_cap, use_len, fill, scan)
+        vals, idxs = self._merge(parts_v, parts_i, min(k, n))
         vals, idxs = vals.cpu(), idxs.cpu()         # the loop's one sync
         wall = time.perf_counter() - t0
         self.stream_stats = {
-            "superblocks": len(parts_v), "rows": n, "block": block, "wall_s": wall,
-            "rows_per_s": n / wall, "stage_thread_s": stage_s[0],
-            "consumer_wait_s": wait_s,
-            "copy_s": sum(e[0].elapsed_time(e[1]) for e in timing) / 1e3 if cuda else None,
-            "scan_s": sum(e[2].elapsed_time(e[3]) for e in timing) / 1e3 if cuda else None}
-        logger.info("stream scan: %d rows in %d superblocks, %.3f s", n, len(parts_v), wall)
+            "superblocks": st.pop("items"), "rows": n, "block": block, "wall_s": wall,
+            "rows_per_s": n / wall, **st, **spans()}
+        logger.info("stream scan: %d rows in %d superblocks, %.3f s", n,
+                    self.stream_stats["superblocks"], wall)
+        return vals, idxs
+
+    # -- disk-streaming IVF ---------------------------------------------------
+    def _load_stream_ivf(self):
+        """Open, or build, the cluster-contiguous disk sidecars (ivf.py)
+        next to the DB, once."""
+        if self._sivf is not None:
+            return
+        with self._init_lock:
+            if self._sivf is not None:
+                return
+            self._load_stream_ivf_now()
+
+    def _fresh_sidecar(self, p: str, fp: np.ndarray):
+        """The sidecar set at `p` if it exists and its fingerprint matches
+        the DB's (it snapshots the embeddings: a rebuilt DB must not be
+        served from it), else None."""
+        if not os.path.exists(p + ".npz"):
+            return None
+        siv = ivf_mod.load_disk_ivf(p)
+        old = siv.get("fingerprint")
+        if old is None or not np.array_equal(old, fp):
+            logger.warning("disk IVF sidecar at %s is stale (DB changed); rebuilding", p)
+            return None
+        return siv
+
+    def _load_stream_ivf_now(self):
+        t0 = time.perf_counter()
+        prefix = getattr(self.db, "prefix", None)
+        if not prefix:
+            raise ValueError("disk-streaming IVF needs an on-disk DB "
+                             "(no prefix to place the sidecars next to)")
+        p = f"{prefix}.ivfdisk{self.ivf_nlist}.{_DISK_PRECISION[self.dtype]}"
+        fp = self._db_fingerprint()
+        siv = self._fresh_sidecar(p, fp)
+        if siv is None:
+            # cross-PROCESS guard (the lock above serialises this engine's
+            # threads only): flock, then check again, since another process
+            # may have built it meanwhile; write_disk_ivf publishes by rename
+            with open(p + ".lock", "w") as lk:
+                fcntl.flock(lk, fcntl.LOCK_EX)
+                siv = self._fresh_sidecar(p, fp)
+                if siv is None:
+                    siv = ivf_mod.write_disk_ivf(
+                        self._normalised_embeddings(), self.db.lengths(), self.ivf_nlist, p,
+                        precision=_DISK_PRECISION[self.dtype], fingerprint=fp,
+                        device=self.device)
+                    self.ivf_build_s = time.perf_counter() - t0
+                    logger.info("disk IVF built at %s (%.2fs)", p, self.ivf_build_s)
+        siv["dcent"] = torch.from_numpy(
+            np.ascontiguousarray(siv["centroids"], np.float32)).to(self.device)
+        self.ivf_nlist = siv["nlist"]   # the build may clamp
+        self._sivf = siv
+
+    def _stream_ivf_search(self, q, k, qlen, mincov, use_len):
+        """Sublinear search over a DB over the device budget: stage only
+        the union of the batch's probed clusters from the disk sidecars, in
+        coalesced runs of whole clusters, and run the flat scan on each
+        group of staged clusters (exact within the probed set). Slot
+        padding rows carry +inf lengths; mincov is folded into the finite
+        lengths only (inf * 0 is NaN) and the scan masks tl <= qcap at
+        mincov 1.0. With duplicates in the layout, each group's top-k is
+        k * (DUP_PREF + 1) deep and the merge dedups by original id
+        (ivf._dedup_topk, on the device)."""
+        self._load_stream_ivf()
+        siv = self._sivf
+        c_rows, nlist = siv["cluster_rows"], siv["nlist"]
+        dev = self.device
+        if q.shape[0] == 0:   # empty batch: nothing to probe or stage
+            return (torch.full((0, k), float("-inf")), torch.full((0, k), -1, dtype=torch.int64))
+        t0 = time.perf_counter()
+        qf = torch.from_numpy(q).to(dev)
+        probe = torch.topk(qf @ siv["dcent"].T, min(self.ivf_nprobe, nlist), dim=1).indices
+        union = torch.unique(probe).cpu().numpy()     # sorted cluster ids (a sync)
+        query = topk_ops.query_operands(q, self.dtype, self.device)
+        qcap = qlen if use_len else torch.full((q.shape[0],), 3e38, device=dev)
+        fold = np.float32(mincov if use_len else 0.0)
+        per_group = max(1, self.stream_block // c_rows)
+        dup = bool(siv.get("dup"))
+        parts_v, parts_i = [], []
+
+        def fill(buf, g0):
+            rows, tl, pm = buf["rows"], buf["tlen"].numpy(), buf["perm"].numpy()
+            rows_np = rows.view(torch.int16).numpy() if self.dtype == torch.bfloat16 \
+                else rows.numpy()
+            at = 0
+            for a, b in ivf_mod.cluster_runs(union[g0:g0 + per_group]):
+                lo, hi = a * c_rows, b * c_rows
+                m = hi - lo
+                np.copyto(rows_np[at:at + m], siv["emb"][lo:hi].view(rows_np.dtype))
+                tl[at:at + m] = siv["lengths"][lo:hi]
+                pm[at:at + m] = siv["perm"][lo:hi]
+                if siv["scales"] is not None:
+                    buf["scales"].numpy()[at:at + m] = siv["scales"][lo:hi]
+                at += m
+            fin = np.isfinite(tl[:at])
+            tl[:at][fin] *= fold
+            return at, at
+
+        def scan(d, nb):
+            kk = min(k * (ivf_mod.DUP_PREF + 1) if dup else k, nb)
+            vals, idxs = self._scan(query, d["rows"], nb, kk, d["tlen"], qcap, 1.0, True,
+                                    d.get("scales"))
+            parts_v.append(vals)
+            parts_i.append(torch.where(idxs >= 0, d["perm"][idxs.clamp(min=0)], -1))
+
+        st, spans = self._staged_scans(range(0, len(union), per_group), per_group * c_rows,
+                                       True, fill, scan, perm=True)
+        staged = len(union) * c_rows
+        if dup:
+            # copies of a multi-assigned row can win in several groups with
+            # one score: merge by unique original id
+            vals, idxs = ivf_mod._dedup_topk(torch.cat(parts_v, dim=1),
+                                             torch.cat(parts_i, dim=1), min(k, staged))
+        else:
+            vals, idxs = self._merge(parts_v, parts_i, min(k, staged))
+        vals, idxs = vals.cpu(), idxs.cpu()          # the loop's one sync
+        wall = time.perf_counter() - t0
+        npad = len(siv["perm"])
+        self.stream_stats = {
+            "groups": st.pop("items"), "clusters": len(union), "nlist": nlist,
+            "rows_staged": staged, "staged_share": staged / npad, "rows": npad,
+            "wall_s": wall, **st, **spans()}
+        logger.info("stream IVF: %d/%d clusters staged (%d rows, %.1f%% of the layout) in "
+                    "%.3f s", len(union), nlist, staged, 100.0 * staged / npad, wall)
         return vals, idxs

@@ -18,7 +18,8 @@ import torch
 from ..device import resolve_device
 
 HBM_BPS = 3.35e12                                  # H100 SXM device memory (bytes/s)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}       # dense tensor-core peaks (op/s)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12,      # dense tensor-core peaks (op/s)
+            "f32": 67e12}                          # and f32 on the CUDA cores
 HOLD_CYCLES = 2_000_000          # time_ms's spin before each timed call: ~1 ms at 1.98 GHz
 
 

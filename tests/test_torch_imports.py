@@ -42,7 +42,8 @@ def test_port_has_the_slice_modules():
               "models.merizo.ipa", "models.merizo.decoder", "models.merizo.network",
               "segment.postprocess", "segment.pipeline", "segment.outputs",
               "utils.residues", "tools.synthetic", "pipeline.multidomain",
-              "utils.profiling"):
+              "utils.profiling", "search.ivf", "segment.evaluate",
+              "tools.ivf_curve"):
         assert f"merizo_search_tpu_torch.{m}" in mods
 
 

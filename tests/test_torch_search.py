@@ -153,8 +153,7 @@ def test_cli_search_writes_the_same_tsv(setup):
     assert _tsv_rows(out + "_search.tsv") == _tsv_rows(out + "_want.tsv")
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--search_index", "ivf"],
-                                  ["--tmalign_backend", "tpu"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--tmalign_backend", "tpu"]])
 def test_cli_unported_modes_raise(setup, flag):
     from merizo_search_tpu_torch import cli
 
