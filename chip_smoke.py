@@ -88,12 +88,16 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             and int8, with and without the f32 rerank (recall never falls as
             nprobe rises, rerank never below plain); at nprobe = nlist (Q =
             32) the flat fused scan's result, scores bit for bit; phase C at
-            the IVF shapes against its plain version and timed (the probe
-            gather at nprobe 32, bf16 and int8; the f32 mode at the rerank
-            shape, Q = 256, KB = 101, within 1e-5); then SearchEngine(index=
-            "ivf") over an mmap DB of these rows in device mode (with and
-            without rerank: three phase-C launches, one in the f32 mode) and
-            forced to stream (disk sidecars built in the run's temp directory;
+            the IVF shapes (the probe gather at nprobe 32, bf16 and int8; the
+            f32 mode at the rerank shape, Q = 256, KB = 101, within 1e-5 of
+            float64): the per-query kernel against its plain version, the
+            block-major launch the IVF runs (gather_block_scores_by_block:
+            each distinct block read once) equal to it bit for bit with every
+            slot written, both timed in turns (and the inversion alone);
+            then SearchEngine(index="ivf") over an mmap DB of these rows in
+            device mode (with and without rerank: three block-major phase-C
+            launches, one in the f32 mode, and no per-query one) and forced
+            to stream (disk sidecars built in the run's temp directory;
             phases A and C once a staged group; recall >= device mode's; at
             nprobe = nlist the device flat scan's result bit for bit; at
             Q = 8, whose probe union is a few percent of the layout, staged
@@ -413,6 +417,7 @@ def reset_counts():
                                              probes, slab_interleave)
 
     blockmax.launches = gather.launches = gather.launches_f32 = 0
+    gather.launches_by_block = gather.launches_by_block_f32 = 0
     pipelined.launches = slab_interleave.launches = 0
     for counts in (probes.launches, gather_variants.launches):
         for name in counts:
@@ -425,6 +430,8 @@ def launch_counts():
 
     return {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches,
             "gather_block_scores.f32": gather.launches_f32,
+            "gather_block_scores_by_block": gather.launches_by_block,
+            "gather_block_scores_by_block.f32": gather.launches_by_block_f32,
             "blockmax_scan_gather": pipelined.launches, **probes.launches,
             "slab_scan": slab_interleave.launches,
             **{f"gather_variant.{m}": n for m, n in gather_variants.launches.items()}}
@@ -1156,36 +1163,83 @@ IVF_PROBE = 32             # the engine's and the CLI's default nprobe
 IVF_Q_SMALL = 8            # a batch whose probe union is a few percent of the layout
 
 
-def gather_row(mode, q, db, bidx, npad, tl, qc, flush, **kw):
-    """Phase C in one mode against its plain version at an IVF shape, then
-    timed: the row of the kernel table. Bytes: each distinct selected block
-    (rows and tl) once, the queries, bidx (and scale_sel), qcap, the output."""
-    from merizo_search_tpu_torch.ops import gather
+def gather_bytes(q, db, bidx, kw):
+    """Bytes phase C must move at least: each distinct selected block (rows
+    and tl) once, its scales in the per-row mode, the queries, bidx (and
+    scale_sel), qcap and the output."""
+    nq, kb = bidx.shape
+    nblk = int(torch.unique(bidx[bidx >= 0]).numel())
+    return nblk, (nblk * 128 * (128 * db.element_size() + 4 + (4 if "scales" in kw else 0))
+                  + nq * 128 * q.element_size()
+                  + bidx.numel() * 4 * (2 if "scale_sel" in kw else 1) + nq * 4
+                  + nq * kb * 128 * 4)
 
+
+def gather_row(mode, q, db, bidx, npad, tl, qc, flush, bb_kw=None, **kw):
+    """Phase C in one mode at an IVF shape: the per-query kernel
+    (`gather_block_scores` with `kw`) against its plain version, and the
+    block-major launch the IVF runs (`bb_kw`, default `kw`) against its
+    plain version and equal to the per-query output bit for bit, with every
+    slot written (an out= full of NaN). Timed in turns (per-query,
+    block-major, block-major, per-query), and its inversion alone. Returns
+    the two rows of the kernel table."""
+    from merizo_search_tpu_torch.ops import _build, gather
+
+    bb_kw = kw if bb_kw is None else bb_kw
     got = gather.gather_block_scores(q, db, bidx, npad, tl, qc, **kw)
+    out = torch.full_like(got, float("nan"))
+    bb = gather.gather_block_scores_by_block(q, db, bidx, npad, tl, qc, out=out, **bb_kw)
     torch.cuda.synchronize()
+    check(not torch.isnan(bb).any(), f"{mode}: the block-major launch left slots unwritten")
+    check(torch.equal(bb, got), f"{mode}: the block-major launch differs from the per-query "
+          "kernel")
     want = gather.gather_plain(q, db, bidx, npad, tl, qc, **kw)
     err = max_err(got, want, mode == "int8")
-    del got, want
-    ms = time_ms(lambda: gather.gather_block_scores(q, db, bidx, npad, tl, qc, **kw), 10, flush)
+    if bb_kw is not kw:
+        want = gather.gather_plain(q, db, bidx, npad, tl, qc, **bb_kw)
+    bb_err = max_err(bb, want, mode == "int8")
+    del got, out, bb, want
+    pq = lambda: gather.gather_block_scores(q, db, bidx, npad, tl, qc, **kw)
+    by = lambda: gather.gather_block_scores_by_block(q, db, bidx, npad, tl, qc, **bb_kw)
+    t = [time_ms(f, 10, flush) for f in (pq, by, by, pq)]
+    ms, bb_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     plain_ms = time_ms(lambda: gather.gather_plain(q, db, bidx, npad, tl, qc, **kw), 1, flush)
-    isz, (nq, kb) = db.element_size(), bidx.shape
-    nblk = int(torch.unique(bidx[bidx >= 0]).numel())
-    nbytes = (nblk * 128 * (128 * isz + 4) + nq * 128 * q.element_size()
-              + bidx.numel() * 4 * (2 if "scale_sel" in kw else 1) + nq * 4 + nq * kb * 128 * 4)
-    b_ms, b_by = bound(nbytes, 2 * int((bidx >= 0).sum()) * 128 * 128,
-                       {torch.float32: "f32"}.get(db.dtype, mode))
-    return {"dtype": mode, "mode": "f32_rerank" if db.dtype == torch.float32 else
-            ("scale_sel" if kw else "none") + "_ivf_probe", "n": npad, "q": nq, "kb": kb,
-            "distinct_blocks": nblk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    bb_plain_ms = plain_ms if bb_kw is kw else time_ms(
+        lambda: gather.gather_plain(q, db, bidx, npad, tl, qc, **bb_kw), 1, flush)
+    nq, kb = bidx.shape
+    # the block-major launch's inversion alone (its four launches into the
+    # workspace), the part of bb_ms that reads no block
+    lib, nb = _build.library(), db.shape[0] // 128
+    ws = torch.empty(lib.mst_by_block_ws(nb, nq * kb, None), dtype=torch.int32, device=db.device)
+    bp = _build.ptr(bidx, "bidx", torch.int32, (nq, kb))
+    inv_ms = time_ms(lambda: _build.check_launch(lib.mst_invert_blocks(
+        bp, ws.data_ptr(), nq, kb, nb, torch.cuda.current_stream().cuda_stream),
+        "invert_blocks"), 10, flush)
+    ops = 2 * int((bidx >= 0).sum()) * 128 * 128
+    kind = {torch.float32: "f32"}.get(db.dtype, mode)
+    rows = []
+    for name, kws, t_ms, t_plain, e in (("", kw, ms, plain_ms, err),
+                                         ("by_block_", bb_kw, bb_ms, bb_plain_ms, bb_err)):
+        nblk, nbytes = gather_bytes(q, db, bidx, kws)
+        b_ms, b_by = bound(nbytes, ops, kind)
+        scale = next((k for k in ("scale_sel", "scales") if k in kws), "none")
+        rows.append({"dtype": mode, "mode": name + ("f32_rerank" if kind == "f32" else
+                                                    scale + "_ivf_probe"),
+                     "n": npad, "q": nq, "kb": kb, "distinct_blocks": nblk, "max_abs_err": e,
+                     "ms": t_ms, "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    rows[0]["by_block_ms"] = bb_ms
+    rows[1].update(per_query_ms=ms, equal_to_per_query=True, turns_ms=t, invert_ms=inv_ms)
+    return rows
 
 
 def ivf_phase(dev, tmp, e2e_db, flush):
     """The IVF index on the card (module docstring, phase 13). Returns
-    (readings, launch counts by path, phase-C rows for the kernel table)."""
+    (readings, launch counts by path, phase-C rows for the kernel table:
+    per-query and block-major)."""
     from merizo_search_tpu_torch import cli
     from merizo_search_tpu_torch.db.codecs import FlatDB
+    from merizo_search_tpu_torch.ops import gather
     from merizo_search_tpu_torch.ops.fused_scan import fused_topk, selected_scales
     from merizo_search_tpu_torch.ops.topk import quantize_rows
     from merizo_search_tpu_torch.search import ivf
@@ -1193,7 +1247,7 @@ def ivf_phase(dev, tmp, e2e_db, flush):
     from merizo_search_tpu_torch.tools import ivf_curve
     from merizo_search_tpu_torch.utils import profiling
 
-    out, counts, rows = {}, {}, []
+    out, counts, rows, bb_rows = {}, {}, [], []
     # (a) the build and (b) recall and queries/s by nprobe: the port's curve tool
     st = {}
     curve = ivf_curve.main(["--log2-rows", str(IVF_ROWS_LOG2), "--nlist", str(IVF_NLIST),
@@ -1233,10 +1287,11 @@ def ivf_phase(dev, tmp, e2e_db, flush):
     for rerank in (False, True):
         fn = ivf_curve.search_fn(d, q, IVF_K, IVF_PROBE, rerank, dev)
         fn()
-        wall, busy, top, _ = device_busy(fn)
+        wall, busy, top, per = device_busy(fn)
         out["profile"]["rerank" if rerank else "plain"] = {
             "wall_s": wall, "device_busy_s": busy,
-            "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_s": top}
+            "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_s": top,
+            "kernels_s": {k[:80]: v for k, v in sorted(per.items(), key=lambda kv: -kv[1])}}
     # (c) phase C at the IVF shapes: the probe gather (nprobe 32, KB 320) in
     # bf16 and int8, and the f32 mode at the rerank shape (Q 256, KB 101)
     npad = d["db"].shape[0]
@@ -1246,18 +1301,27 @@ def ivf_phase(dev, tmp, e2e_db, flush):
     bidx = ivf._probe_blocks(qf.to(torch.bfloat16), d["centroids"], IVF_PROBE,
                              lay["cluster_rows"] // 128)
     qb = qf.to(torch.bfloat16)
-    rows.append(gather_row("bf16", qb, d["db"], bidx, npad, tl, qc, flush))
-    scores = ivf.gather_block_scores(qb, d["db"], bidx, npad, tl, qc)
+
+    def add(pair):
+        rows.append(pair[0])
+        bb_rows.append(pair[1])
+
+    add(gather_row("bf16", qb, d["db"], bidx, npad, tl, qc, flush))
+    scores = gather.gather_block_scores_by_block(qb, d["db"], bidx, npad, tl, qc)
     _, bidx2 = ivf._rerank_blocks(qf, d["hi"], scores, bidx, tl, qc, IVF_K)
     check(tuple(bidx2.shape) == (IVF_Q, IVF_K + 1), f"rerank shape {tuple(bidx2.shape)}")
-    rows.append(gather_row("f32", qf, d["hi"], bidx2, npad, tl, qc, flush))
-    check(rows[-1]["max_abs_err"] <= 1e-5, f"f32 mode off by {rows[-1]['max_abs_err']}")
+    add(gather_row("f32", qf, d["hi"], bidx2, npad, tl, qc, flush))
+    for r in (rows[-1], bb_rows[-1]):
+        check(r["max_abs_err"] <= 1e-5, f"f32 mode off by {r['max_abs_err']}")
     del d, scores
     d8 = ivf.resident_layout(emb, lay, torch.int8, dev)
     q8 = torch.from_numpy(quantize_rows(q)[0]).to(dev)
     bidx8 = ivf._probe_blocks(qf, d8["centroids"], IVF_PROBE, lay["cluster_rows"] // 128)
-    rows.append(gather_row("int8", q8, d8["db"], bidx8, npad, tl, qc, flush,
-                           scale_sel=selected_scales(d8["scales"], bidx8)))
+    # the per-query kernel with per-selected-block scales (the flat scan's
+    # mode); the block-major launch as the IVF runs it (per-row scales)
+    add(gather_row("int8", q8, d8["db"], bidx8, npad, tl, qc, flush,
+                   bb_kw={"scales": d8["scales"]},
+                   scale_sel=selected_scales(d8["scales"], bidx8)))
     del d8, tl, qc
     torch.cuda.empty_cache()
 
@@ -1291,10 +1355,11 @@ def ivf_phase(dev, tmp, e2e_db, flush):
     rv, ri = rr.search(q, IVF_K)
     dev_s = time.perf_counter() - t
     counts["device"] = launch_counts()
-    check(counts["device"]["gather_block_scores"] == 3
-          and counts["device"]["gather_block_scores.f32"] == 1
+    check(counts["device"]["gather_block_scores_by_block"] == 3
+          and counts["device"]["gather_block_scores_by_block.f32"] == 1
+          and counts["device"]["gather_block_scores"] == 0
           and counts["device"]["blockmax_scan"] == 0,
-          f"device IVF launches: {counts['device']}")
+          f"device IVF launches (three block-major, one of them f32): {counts['device']}")
     dev_pt = next(p for p in curve["points"] if p["dtype"] == "bf16"
                   and p["nprobe"] == IVF_PROBE)
     out["device_engine"] = {"build_s": eng.ivf_build_s, "two_searches_s": dev_s,
@@ -1391,7 +1456,8 @@ def ivf_phase(dev, tmp, e2e_db, flush):
               "--weights", e2e_db["weights"]])
     torch.cuda.synchronize()
     counts["cli"] = launch_counts()
-    check(counts["cli"]["gather_block_scores"] > 0, f"CLI IVF launches: {counts['cli']}")
+    check(counts["cli"]["gather_block_scores_by_block"] > 0
+          and counts["cli"]["gather_block_scores"] == 0, f"CLI IVF launches: {counts['cli']}")
     first = {}
     for r in read_tsv(res + "_search.tsv"):
         first.setdefault(r["query"], r)
@@ -1401,7 +1467,7 @@ def ivf_phase(dev, tmp, e2e_db, flush):
               f"CLI IVF: {qname} rank-1 hit is {r['target']}")
     out["cli"] = {"phase_s": {k: v[0] for k, v in profiling.timings().items()},
                   "queries": len(first), "planted_rank1": True}
-    return out, counts, rows
+    return out, counts, rows, bb_rows
 
 
 EASY_LENGTHS = (300, 600, 900, 1500)
@@ -1620,7 +1686,7 @@ def main():
                     f"A {r['launches']['blockmax_scan']} C {r['launches']['gather_block_scores']}")
 
         with Phase("ivf") as ph:
-            ivf_out, ivf_counts, ivf_rows = ivf_phase(dev, tmp, e2e_db, flush)
+            ivf_out, ivf_counts, ivf_rows, bb_rows = ivf_phase(dev, tmp, e2e_db, flush)
             g_modes += ivf_rows
             cfg = ivf_out["curve"]
             ph.notes.append(f"build {cfg['build_s']:.2f} s (" + ", ".join(
@@ -1634,8 +1700,10 @@ def main():
             ss = ivf_out["stream"]
             ph.notes.append(f"stream: {ss['stats']['staged_share']:.3f} of the layout staged, "
                             f"{ss['seconds_a_batch']:.3f} s a batch, recall {ss['recall']:.4f}")
-            ph.notes.append(f"f32 rerank phase C {ivf_rows[1]['ms']:.4f} ms (bound "
-                            f"{ivf_rows[1]['bound_ms']:.4f})")
+            for r in bb_rows:
+                ph.notes.append(f"{r['dtype']} phase C block-major {r['ms']:.4f} ms (inversion "
+                                f"{r['invert_ms']:.4f}), per-query {r['per_query_ms']:.4f} "
+                                f"(bound {r['bound_ms']:.4f})")
 
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
@@ -1667,9 +1735,27 @@ def main():
                   launches_by_path={
                       "search": launches["gather_block_scores"],
                       **{f"ivf_{k}": c["gather_block_scores"] for k, c in ivf_counts.items()},
-                      "ivf_device_f32_mode": ivf_counts["device"]["gather_block_scores.f32"]},
+                      **{f"ivf_{k}_by_block": c["gather_block_scores_by_block"]
+                         for k, c in ivf_counts.items()},
+                      "ivf_device_by_block_f32": ivf_counts["device"][
+                          "gather_block_scores_by_block.f32"]},
                   f32_mode={k: ivf_rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                        "bound_by", "max_abs_err", "q", "kb")}),
+                                                        "bound_by", "max_abs_err", "q", "kb")},
+                  by_block=bb_rows),
+            entry("gather_block_scores_by_block", "merizo_search_tpu_torch/csrc/gather.cu",
+                  "merizo_search_tpu/ops/pallas_scan.py:644", bb_rows, {"dtype": "bf16"},
+                  sum(c["gather_block_scores_by_block"] for c in ivf_counts.values()),
+                  kernels="inversion bb_count, bb_alloc (gather.cu); CTA bodies "
+                          "gather_by_block, gather_by_block_f32 (gather.cuh)",
+                  also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode: "
+                                "the IVF's int8 probe)",
+                  launches_by_path={
+                      **{f"ivf_{k}": c["gather_block_scores_by_block"]
+                         for k, c in ivf_counts.items()},
+                      "ivf_device_f32_mode": ivf_counts["device"][
+                          "gather_block_scores_by_block.f32"]},
+                  yardstick="per_query_ms: gather_block_scores on the same inputs, timed in "
+                            "turns; equal to it bit for bit"),
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
                   {"dtype": "bf16", "q": 256, "n": N_BIG},

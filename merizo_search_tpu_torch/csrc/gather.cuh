@@ -225,4 +225,270 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
   cp_async_wait<0>();
 }
 
+
+// ---------------------------------------------------------------------------
+// Block-major phase C: the IVF launches (the probe gather, bf16 or int8, and
+// the f32 rerank). The contract is gather_cols's, masks, scale modes and
+// layout included; only which CTA computes which output slot changes.
+//
+// Why: gather_cols runs one CTA per (query, GROUP columns), so a block that
+// q queries select is read from device memory q times. The IVF's probed
+// clusters are shared by many queries (nprobe 32, Q 256: 81,920 (query,
+// block) pairs over 10,240 distinct blocks), so the per-query walk moves
+// ~8x the bytes of its bound. Here the selection is first inverted
+// (gather.cu: a counting sort of bidx by block, into a CSR from each
+// distinct block to its (query, column) slots), then each distinct block
+// is staged once and scored against every slot of its list. Bound: each
+// distinct block once, plus the [Q, KB*128] output.
+//
+// Bits: each slot is computed by the arithmetic the per-query kernel uses.
+// bf16/int8: mma_rows with the query in N slot qi % 8 of its n-tile; the
+// CSR keeps a block's slots in eight lists, one per residue qi % 8, and
+// n-tile t takes the t-th slot of each residue list (zeros where a list is
+// shorter), so each (row, query) pair meets the tensor core in the N slot
+// and K order it has in the per-query kernel and in phase A. f32: the same
+// FFMA chain, k = 0..127 in order from zero, with the query in shared
+// memory. Which CTA takes which block, and the order of the slots inside a
+// list, come from atomics and may change from run to run; the output does
+// not.
+//
+// Design: one CTA a distinct block (and a few for the padding list), with
+// no ring: the block's cp.async copies are in flight while the CTA loads
+// its list offsets and stages its slots (list entry, query cap, scale) in
+// shared memory, so the chain of dependent loads before the dot is short
+// (block id, offsets, slots, query fragments), and the CTAs resident on an
+// SM overlap one another's chains and loads. bf16/int8 score two n-tiles
+// (16 slots) a pass, which keeps registers low enough for five (bf16) or
+// six (int8) CTAs an SM; the f32 body (70 KB a block) fits three.
+
+constexpr int RES = 8;     // residue classes of the query index: its N slot
+constexpr int BB_NT = 2;   // n-tiles a pass of the bf16/int8 body (16 slots)
+constexpr int BB_NQ = 4;   // slots a pass of the f32 body (one float4 a thread to stage)
+// CTAs an SM the bf16/int8 kernel is built for (its launch bound)
+template <class T>
+constexpr int BB_CTAS = T::IS_INT ? 6 : 5;
+
+// The inversion's CSR in the workspace (gather.cu builds it). Bucket b < nb
+// is block b, bucket nb collects the padding entries (bidx < 0, or >= nb:
+// an id outside the DB is floored to NEG_CAP, never read). Bucket b's
+// entries of residue r (entry i = q*KB + c has residue q % 8) are
+// list[off[9b + r] .. off[9b + r + 1]); a bucket's eight lists are
+// contiguous, the buckets in no particular order.
+struct ByBlock {
+  const int* off;   // [(nb + 1) * 9]
+  const int* dist;  // [nb] the distinct selected blocks, hdr[0] of them, in no order
+  const int* hdr;
+  const int* list;  // [Q * KB]
+  int nb;
+};
+
+// One slot of a pass, staged in shared memory after the block: entry
+// r * BB_NT + j is the (t0 + j)-th slot of residue list r (n-tile t0 + j, N
+// slot r), sel = its flat entry q*KB + c (-1 where the list is shorter),
+// with qcap[q] and scale_sel[sel].
+struct BBMeta {
+  int sel;
+  float qc, ss;
+};
+
+template <class T>
+size_t by_block_smem() {
+  return (size_t)Slot<T>::BYTES + RES * BB_NT * sizeof(BBMeta);
+}
+
+inline size_t by_block_f32_smem() {
+  return (size_t)Slot<F32>::BYTES + BB_NQ * DIM * sizeof(float);
+}
+
+// NEG_CAP in every row of the padding list's slots j = first, += step
+// (GTHREADS threads, one row each).
+__device__ __forceinline__ void by_block_padding(float* __restrict__ out, const ByBlock& cs,
+                                                 int first, int step) {
+  const int lo = cs.off[cs.nb * (RES + 1)], hi = cs.off[cs.nb * (RES + 1) + RES];
+  for (int j = lo + first; j < hi; j += step)
+    out[(long long)cs.list[j] * BLOCK + threadIdx.x] = NEG_CAP;
+}
+
+// Pass t0's slots of the block whose residue lists start at ro (in global
+// memory): threads below RES * BB_NT, one an entry. Two dependent loads (the
+// list, then the query's cap and scale) for the whole pass, not for each
+// slot a lane writes.
+__device__ __forceinline__ void by_block_meta(BBMeta* __restrict__ meta,
+                                              const int* __restrict__ ro, const ByBlock& cs,
+                                              const float* __restrict__ tl,
+                                              const float* __restrict__ qcap,
+                                              const float* __restrict__ scale_sel, int kb,
+                                              int t0) {
+  if (threadIdx.x >= RES * BB_NT) return;
+  const int r = threadIdx.x / BB_NT, t = t0 + threadIdx.x % BB_NT;
+  const int lo = ro[r];
+  BBMeta m{-1, 0.f, 1.f};
+  if (t < ro[r + 1] - lo) {
+    m.sel = cs.list[lo + t];
+    if (tl != nullptr) m.qc = qcap[m.sel / kb];
+    if (scale_sel != nullptr) m.ss = scale_sel[m.sel];
+  }
+  meta[threadIdx.x] = m;
+}
+
+// bf16/int8: GTHREADS threads; CTA blockIdx.x < nd stages block
+// dist[blockIdx.x] once and scores it against every slot of its lists,
+// BB_NT n-tiles a pass (warp w: m-tiles 2w and 2w+1); the CTAs past nd
+// share the padding list. The block's copies are in flight while its list
+// offsets, per-row scales and pass 0's slots load. Needs by_block_smem<T>()
+// bytes at `smem`.
+template <class T>
+__device__ __forceinline__ void
+gather_by_block(unsigned char* smem, const typename T::In* __restrict__ q,
+                const typename T::In* __restrict__ db, const float* __restrict__ tl,
+                const float* __restrict__ qcap, const float* __restrict__ scale_sel,
+                const float* __restrict__ scales, float* __restrict__ out, int kb,
+                long long n_valid, const ByBlock& cs) {
+  const int nd = cs.hdr[0];
+  if ((int)blockIdx.x >= nd) {
+    by_block_padding(out, cs, (int)blockIdx.x - nd, (int)gridDim.x - nd);
+    return;
+  }
+  const int b = cs.dist[blockIdx.x];
+  load_block<T>(smem, db, tl, b);
+  cp_async_commit();
+  BBMeta* meta = reinterpret_cast<BBMeta*>(smem + Slot<T>::BYTES);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int* ro = cs.off + b * (RES + 1);  // residue r: list[ro[r] .. ro[r + 1])
+  int ntiles = 0;
+  {
+    int prev = ro[0];
+#pragma unroll
+    for (int r = 1; r <= RES; ++r) {
+      const int cur = ro[r];
+      ntiles = max(ntiles, cur - prev);
+      prev = cur;
+    }
+  }
+  float rs[2][2];  // per-row mode: the scales of this lane's four rows
+#pragma unroll
+  for (int hm = 0; hm < 2; ++hm)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      rs[hm][e] = scales != nullptr
+                      ? scales[(long long)b * BLOCK + (2 * warp + hm) * 16 + g + 8 * e]
+                      : 1.f;
+  by_block_meta(meta, ro, cs, tl, qcap, scale_sel, kb, 0);
+  cp_async_wait<0>();
+  __syncthreads();  // the block has landed; pass 0's slots are staged
+  const float* tlb = reinterpret_cast<const float*>(smem + Slot<T>::TL);
+
+  for (int t0 = 0; t0 < ntiles; t0 += BB_NT) {
+    if (t0 > 0) {
+      __syncthreads();  // the last pass has read its slots
+      by_block_meta(meta, ro, cs, tl, qcap, scale_sel, kb, t0);
+      __syncthreads();
+    }
+    const int ntv = min(BB_NT, ntiles - t0);
+    uint32_t bfrag[BB_NT][T::KSTEPS][2];  // n-tile j, N slot g: residue g's slot
+#pragma unroll
+    for (int j = 0; j < BB_NT; ++j) {
+      const int sel = meta[g * BB_NT + j].sel;
+      load_query_frag<T>(bfrag[j], q, max(sel, 0) / kb, sel >= 0);
+    }
+#pragma unroll
+    for (int hm = 0; hm < 2; ++hm) {
+      const int mt = 2 * warp + hm;
+      typename T::Acc acc[BB_NT][4];
+      mma_rows<T, BB_NT>(acc, smem + mt * 16 * Slot<T>::PITCH, bfrag, ntv);
+#pragma unroll
+      for (int j = 0; j < BB_NT; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // C column 2 tig + h: residue 2 tig + h's slot
+          const BBMeta m = meta[(2 * tig + h) * BB_NT + j];
+          if (j >= ntv || m.sel < 0) continue;
+          float* o = out + (long long)m.sel * BLOCK;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = mt * 16 + g + 8 * e;
+            const long long row = (long long)b * BLOCK + r;
+            float s = (float)acc[j][2 * e + h];
+            bool keep = row < n_valid;
+            if (tl != nullptr) keep = keep && tlb[r] <= m.qc;
+            if (scale_sel != nullptr) s *= m.ss;
+            if (scales != nullptr) s *= rs[hm][e];
+            o[r] = (keep && s == s) ? s : NEG_CAP;
+          }
+        }
+      }
+    }
+  }
+}
+
+// f32 (the rerank): CTA blockIdx.x < nd stages block dist[blockIdx.x] once;
+// thread r holds row r and runs gather_cols_f32's FFMA chain for BB_NQ
+// slots at a time (independent chains, each in k order), their queries
+// staged in shared memory and read as broadcasts. The CTAs past nd share
+// the padding list.
+__device__ __forceinline__ void
+gather_by_block_f32(unsigned char* smem, const float* __restrict__ q,
+                    const float* __restrict__ db, const float* __restrict__ tl,
+                    const float* __restrict__ qcap, const float* __restrict__ scale_sel,
+                    const float* __restrict__ scales, float* __restrict__ out, int kb,
+                    long long n_valid, const ByBlock& cs) {
+  using SL = Slot<F32>;
+  const int nd = cs.hdr[0];
+  if ((int)blockIdx.x >= nd) {
+    by_block_padding(out, cs, (int)blockIdx.x - nd, (int)gridDim.x - nd);
+    return;
+  }
+  const int b = cs.dist[blockIdx.x];
+  load_block<F32>(smem, db, tl, b);
+  cp_async_commit();
+  const int lo = cs.off[b * (RES + 1)], hi = cs.off[b * (RES + 1) + RES];
+  float* qs = reinterpret_cast<float*>(smem + SL::BYTES);
+  const int r = threadIdx.x;
+  const long long rowi = (long long)b * BLOCK + r;
+  cp_async_wait<0>();
+  __syncthreads();
+  const bool keep0 = rowi < n_valid;
+  const float tlr = tl != nullptr ? reinterpret_cast<const float*>(smem + SL::TL)[r] : 0.f;
+  const float4* row = reinterpret_cast<const float4*>(smem + r * SL::PITCH);
+
+  for (int g0 = lo; g0 < hi; g0 += BB_NQ) {
+    const int m = min(BB_NQ, hi - g0);
+    {  // stage the pass's queries: thread t copies float4 t % 32 of slot t / 32
+      const int j = threadIdx.x >> 5, d4 = threadIdx.x & 31;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < m)
+        v = reinterpret_cast<const float4*>(q + (long long)(cs.list[g0 + j] / kb) * DIM)[d4];
+      reinterpret_cast<float4*>(qs + j * DIM)[d4] = v;
+    }
+    __syncthreads();
+    float s[BB_NQ];
+#pragma unroll
+    for (int j = 0; j < BB_NQ; ++j) s[j] = 0.f;
+#pragma unroll 8
+    for (int k4 = 0; k4 < DIM / 4; ++k4) {
+      const float4 x = row[k4];
+#pragma unroll
+      for (int j = 0; j < BB_NQ; ++j) {
+        const float4 y = reinterpret_cast<const float4*>(qs + j * DIM)[k4];
+        s[j] = fmaf(x.x, y.x, s[j]);
+        s[j] = fmaf(x.y, y.y, s[j]);
+        s[j] = fmaf(x.z, y.z, s[j]);
+        s[j] = fmaf(x.w, y.w, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BB_NQ; ++j) {
+      if (j >= m) continue;
+      const int sel = cs.list[g0 + j];
+      bool keep = keep0;
+      if (tl != nullptr) keep = keep && tlr <= qcap[sel / kb];
+      float v = s[j];
+      if (scale_sel != nullptr) v *= scale_sel[sel];
+      if (scales != nullptr) v *= scales[rowi];
+      out[(long long)sel * BLOCK + r] = (keep && v == v) ? v : NEG_CAP;
+    }
+    __syncthreads();  // the next pass rewrites qs
+  }
+}
+
 }  // namespace mst

@@ -89,6 +89,13 @@ def library() -> ctypes.CDLL:
         lib.mst_gather_block_scores.restype = ci
         lib.mst_gather_block_scores.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
                                                 vp, ci, ci, ll, vp]
+        lib.mst_by_block_ws.restype = ll
+        lib.mst_by_block_ws.argtypes = [ci, ll, vp]
+        lib.mst_invert_blocks.restype = ci
+        lib.mst_invert_blocks.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.mst_gather_by_block.restype = ci
+        lib.mst_gather_by_block.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                            ci, ci, ll, vp]
         lib.mst_bm_gather.restype = ci
         lib.mst_bm_gather.argtypes = [ci, vp, vp, vp, vp, ci, ci, ll, ci, ci, vp,
                                       vp, vp, vp, ci, ci, vp]

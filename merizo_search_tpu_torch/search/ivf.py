@@ -13,10 +13,12 @@ byte per query batch; the IVF touches only `nprobe/nlist` of it:
   balancing is the JAX package's numpy, so one seed gives one layout.
 - **Query** (device): one small matmul scores the centroids, the
   top-nprobe clusters of each query become 128-row block ids, and phase C
-  of the fused scan (ops/gather.py, the CUDA kernel on the card) rescores
-  exactly those blocks; `torch.topk` takes the exact top-k of everything
-  probed. `rerank_hi` rescores the top-(k+1) probed blocks again from an
-  f32 sidecar (phase C's f32 mode).
+  of the fused scan rescores exactly those blocks, through its
+  block-major launch (ops/gather.py `gather_block_scores_by_block`: on the
+  card each probed block is read once a batch, however many queries probe
+  it); `torch.topk` takes the exact top-k of everything probed.
+  `rerank_hi` rescores the top-(k+1) probed blocks again from an f32
+  sidecar (phase C's f32 mode, block-major too).
 - **Disk** (host): `write_disk_ivf` persists the permuted layout as
   sidecars for the engine's stream IVF, which stages only the probed
   clusters. The files are byte for byte the JAX package's: a sidecar set
@@ -38,8 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.fused_scan import selected_scales
-from ..ops.gather import gather_block_scores
+from ..ops.gather import gather_block_scores_by_block
 from ..ops.topk import BLOCK, quantize_blocks
 
 logger = logging.getLogger(__name__)
@@ -339,13 +340,14 @@ def _rerank_blocks(q_hi, db_hi, scores, bidx, tl, qcap, k: int):
     """Exact re-rank: the top-(k+1) scanned blocks (by block max of the
     scan's scores [Q, KB*128]) rescored from the f32 sidecar db_hi
     [Npad, D] against the f32 queries, under the scan's own masks (tl /
-    qcap: padding rows and the mincov filter), through phase C's f32 mode.
+    qcap: padding rows and the mincov filter), through phase C's f32 mode
+    (block-major).
     Returns (scores2 [Q, KS*128], bidx2 [Q, KS]) with KS = min(k+1, KB)."""
     qn, kb = bidx.shape
     blkmax = scores.view(qn, kb, BLOCK).amax(dim=2)
     cols = torch.topk(blkmax, min(k + 1, kb), dim=1).indices
     bidx2 = torch.gather(bidx, 1, cols).contiguous()
-    s2 = gather_block_scores(q_hi, db_hi, bidx2, db_hi.shape[0], tl, qcap)
+    s2 = gather_block_scores_by_block(q_hi, db_hi, bidx2, db_hi.shape[0], tl, qcap)
     return s2, bidx2
 
 
@@ -356,8 +358,9 @@ def _probe_and_select(q, db_perm, perm, bidx, k: int, tlen, qlen, mincov: float,
 
     scales: [Npad] f32 block-uniform scales when db_perm is int8 (over the
     PERMUTED layout); q must then be int8 too, and the caller applies the
-    per-query scale to the values. Phase C gets each selected block's scale
-    (`scale_sel`, a plain index of the block-scale vector). Padding rows
+    per-query scale to the values. Phase C takes the scales in its
+    per-row mode (block-uniform, so each score gets its block's scale by
+    the same f32 multiply as the per-selected-block mode). Padding rows
     (perm == -1) are excluded through phase C's length mask: their length
     is +inf, which no finite qcap admits. rerank_hi / q_hi: see
     _rerank_blocks. Returns (scores [Q, k] f32, ORIGINAL ids [Q, k] int64,
@@ -373,8 +376,7 @@ def _probe_and_select(q, db_perm, perm, bidx, k: int, tlen, qlen, mincov: float,
     else:
         tl = pad_inf.contiguous()
         qcap = torch.full((qn,), 3e38, dtype=torch.float32, device=q.device)
-    scale_sel = None if scales is None else selected_scales(scales, bidx)
-    scores = gather_block_scores(q, db_perm, bidx, npad, tl, qcap, scale_sel=scale_sel)
+    scores = gather_block_scores_by_block(q, db_perm, bidx, npad, tl, qcap, scales=scales)
     if rerank_hi is not None:
         scores, bidx = _rerank_blocks(q_hi, rerank_hi, scores, bidx, tl, qcap, k)
     kb = bidx.shape[1]
