@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py` on one H100.
 
-Drives the port's main path (the `search` verb) on the card and checks it:
+Drives the port's main paths (the `search` verb, and the `serve` verb's
+server) on the card and checks them:
 
 1. device   the card's name and power limit (nvidia-smi) and torch's name;
 2. build    nvcc for the scan kernels (csrc/*.cu), g++ for TM-align, timed;
@@ -107,9 +108,34 @@ Drives the port's main path (the `search` verb) on the card and checks it:
             rank 1. Prints the card's busy share in one search (bf16,
             nprobe 32, with and without rerank) under torch.profiler.
 
+14. tmalign  the device TM-align (align/tmalign.py, plain PyTorch) on the
+            card: against itself on the CPU on 32 pairs a bucket at 64, 128
+            and 256 and 16 at 512, fast and full (qtm and ttm within 1e-3 but
+            for at most one pair a group, that one within 0.05; len_ali within
+            2 and rmsd within 0.05 A); against the native aligner (homologs at
+            TM >= 0.9 in both, |device - native| <= 0.02 in the decision
+            region 0.4-0.6, unrelated pairs under the 0.5 gate in both, their
+            deficit recorded); pairs/s beside the native aligner's at b = 256
+            (32, 256 and 1,365 pairs, the chunk cap) and at b = 128 and 512
+            (256 pairs); one b = 256 chunk under torch.profiler (device
+            events, the card's busy share, host seconds of the DP, the
+            superposition search, the SVD and the inits); the peak device
+            memory at b = 2048 for 21 pairs.
+15. serve   the search server (server.py) over the e2e DB in bf16, on
+            127.0.0.1 through real HTTP: 32 concurrent /search requests (k 10,
+            native TM-align; again; then skip_tmalign) against the same
+            requests sent one at a time: micro-batched (fewer batches than
+            requests), every planted row at rank 1 with TM >= 0.9, every hit
+            equal to the serial run's but emb_score, which may move by 1e-4;
+            the same with max_batch 1; an /easy-search beside a burst, equal
+            to its serial run; /healthz and /stats; requests/s, p50 and p99;
+            a service with the device aligner answering 8 planted requests;
+            and `search --tmalign_backend tpu` over the e2e DB, its
+            tmalign_rescore seconds beside the native run's.
+
 Each path (e2e, pipelined, probes, variants, createdb's search, stream,
 easy-search, the ivf phase's device, stream, small-batch stream and CLI
-runs) starts with
+runs, serve) starts with
 every kernel's launch count at 0 and fails unless each of its kernels was launched. The
 2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
 tools' synthetic DB); the kernel table takes the times and bounds of the
@@ -120,7 +146,8 @@ Prints one line per phase with its seconds, a JSON line of the tools'
 results, a JSON line {"createdb": ..., "segment": ...} of phases 9-10, a
 JSON line {"stream": ..., "easy_search": ...} of phases 11-12, a
 JSON line {"phase_a_split": [...]}, a JSON line {"ivf": ...} of phase 13,
-the nvidia-smi line, a JSON
+a JSON line {"tmalign": ..., "serve": ...} of phases 14-15, the nvidia-smi
+line, a JSON
 line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
@@ -135,6 +162,7 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -144,11 +172,12 @@ from merizo_search_tpu_torch.tools import _bench_util
 from merizo_search_tpu_torch.tools._bench_util import bound, device_line
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-TOTAL_BUDGET_S = 510       # hard watchdog: dump stacks and exit(1) past this
+TOTAL_BUDGET_S = 650       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
                   "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
-                  "segment": 90, "stream": 240, "easy_search": 150, "ivf": 120}
+                  "segment": 90, "stream": 240, "easy_search": 150, "ivf": 120,
+                  "tmalign": 180, "serve": 120}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -809,7 +838,7 @@ def e2e_phase(dev, tmp):
         check(all(v > 0 for v in runs[prec]["launches"].values()),
               f"{prec}: a kernel was not launched on the main path: {runs[prec]['launches']}")
     return runs, launch_counts(), {"pdbs": pdbs, "weights": weights, "prefix": prefix,
-                                   "planted": planted}
+                                   "planted": planted, "qcoords": qcoords}
 
 
 N_CREATEDB = 2048          # createdb phase: structures of 50-400 residues,
@@ -827,17 +856,20 @@ def read_tsv(path):
         return [dict(zip(header, ln.rstrip("\n").split("\t"))) for ln in fh]
 
 
-def device_busy(fn):
+def device_busy(fn, cpu=True):
     """Run fn() under torch.profiler: (wall s, device-busy s or None, the
     three kernels with the most device time, the device seconds of every
-    kernel and copy by name). Busy is the union of the device events'
-    intervals (kernels and copies); None when the profiler records no
-    device event."""
+    kernel and copy by name, the number of device events). Busy is the
+    union of the device events' intervals (kernels and copies); None when
+    the profiler records no device event. cpu=False records the device
+    alone (a run of ~10^5 launches otherwise takes the profiler tens of
+    seconds to process)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -845,7 +877,7 @@ def device_busy(fn):
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        return wall, None, [], {}
+        return wall, None, [], {}, 0
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -857,7 +889,7 @@ def device_busy(fn):
         if e.device_type == DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-    return wall, busy / 1e6, [[k[:80], v] for k, v in top], per
+    return wall, busy / 1e6, [[k[:80], v] for k, v in top], per, len(spans)
 
 
 def createdb_phase(dev, tmp):
@@ -933,7 +965,7 @@ def createdb_phase(dev, tmp):
     model = load_foldclass_params(None, dev)
     chunk_coords = [db.coords(i) for i in range(chunk)]
     embed_structures(model, chunk_coords[:8])                        # warm
-    e_wall, e_busy, e_top, _ = device_busy(lambda: embed_structures(model, chunk_coords))
+    e_wall, e_busy, e_top, *_ = device_busy(lambda: embed_structures(model, chunk_coords))
     out["embed_profile"] = {"structures": chunk, "wall_s": e_wall, "device_busy_s": e_busy,
                             "idle_share": None if e_busy is None else 1 - e_busy / e_wall,
                             "top_kernels_s": e_top}
@@ -1027,7 +1059,7 @@ def segment_phase(dev, tmp):
     f = generate_features(paths[f"len{SEGMENT_PROFILED}"])
     x = [torch.from_numpy(f[k])[None].to(dev) for k in ("s", "z", "r", "t", "ri")]
     x[1] = x[1][..., None]
-    f_wall, f_busy, f_top, _ = device_busy(lambda: model.forward_features(*x))
+    f_wall, f_busy, f_top, *_ = device_busy(lambda: model.forward_features(*x))
     out["forward_profile"] = {"nres": SEGMENT_PROFILED, "wall_s": f_wall, "device_busy_s": f_busy,
                               "idle_share": None if f_busy is None else 1 - f_busy / f_wall,
                               "top_kernels_s": f_top}
@@ -1131,7 +1163,7 @@ def stream_phase(dev, tmp, e2e_db):
                     check(ia[tied] == ib[tied], f"{prec}: stream index differs from device mode")
                 else:
                     ties += int(tied.sum())
-        wall, busy, top, per = device_busy(lambda: st.search(q, STREAM_K))
+        wall, busy, top, per, _ = device_busy(lambda: st.search(q, STREAM_K))
         copies = sum(v for k, v in per.items() if k.startswith("Memcpy"))
         out["runs"][prec] = {
             "device_mode_s": device_s, "stream": stats, "tied_entries": ties,
@@ -1287,7 +1319,7 @@ def ivf_phase(dev, tmp, e2e_db, flush):
     for rerank in (False, True):
         fn = ivf_curve.search_fn(d, q, IVF_K, IVF_PROBE, rerank, dev)
         fn()
-        wall, busy, top, per = device_busy(fn)
+        wall, busy, top, per, _ = device_busy(fn)
         out["profile"]["rerank" if rerank else "plain"] = {
             "wall_s": wall, "device_busy_s": busy,
             "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_s": top,
@@ -1574,6 +1606,367 @@ def easy_search_phase(dev, tmp):
     return out, counts
 
 
+TM_PAIRS = {64: 32, 128: 32, 256: 32, 512: 16}   # tmalign phase: card against CPU
+TM_TOL = 1e-3              # |card - CPU| in qtm and ttm, all but one pair a group
+TM_NEAR = 0.05             # ... and that one pair (a DP near-tie flipped by an ulp)
+TM_DECISION = 0.02         # |device - native| in the decision region (NEAR_THRESHOLD_BAND)
+TM_THROUGHPUT = ((256, 32), (256, 256), (256, 1365), (128, 256), (512, 256))
+TM_BIG = (2048, 21)        # the largest bucket at its chunk cap: peak device memory
+KINDS = ("homolog", "decision", "unrelated")
+
+
+def tm_pairs(rng, b, n):
+    """n pairs of bucket b (chains of b/2+1 to b residues), homologs, decision-
+    region constructions and unrelated walks in turn. A homolog is a rigid-
+    moved copy with 0.2 A noise a coordinate; a decision-region pair one with
+    noise of 0.5-0.75 d0(n), which puts TM-scores around 0.5."""
+    from merizo_search_tpu_torch.align.tmalign import tm_d0
+    from merizo_search_tpu_torch.tools.synthetic import rotation
+
+    pairs, kinds = [], []
+    for i in range(n):
+        a = walk(rng, int(rng.integers(b // 2 + 1, b + 1)))
+        kind = KINDS[i % 3]
+        if kind == "unrelated":
+            c = walk(rng, int(rng.integers(b // 2 + 1, b + 1)))
+        else:
+            sigma = 0.2 if kind == "homolog" else float(tm_d0(len(a))) * rng.uniform(0.5, 0.75)
+            c = ((a + rng.normal(size=a.shape) * sigma) @ rotation(rng).T + 10.0).astype(np.float32)
+        pairs.append(({"coords": a, "seq": "A" * len(a)}, {"coords": c, "seq": "A" * len(c)}))
+        kinds.append(kind)
+    return pairs, kinds
+
+
+def max_tm(r):
+    return max(r["qtm"], r["ttm"])
+
+
+def timed(fn, dev):
+    t = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def tmalign_profile(pairs):
+    """One b = 256 chunk under torch.profiler (device activity only): the
+    device events (kernels, and the few copies of inputs and results), the
+    card's busy share and the kernels with the most device time. Then the chunk again with a synchronised host timer
+    around each DP, superposition search, SVD and initial alignment
+    (inclusive: the inits hold their own DP and SVD calls; the syncs cost
+    the run a little overlap)."""
+    import contextlib
+
+    from merizo_search_tpu_torch.align import tmalign as T
+
+    wall, busy, _, per, n_events = device_busy(
+        lambda: T.tmalign_pairs(pairs, device="cuda"), cpu=False)
+
+    names = {"_dp_align": "dp", "tm_score_search": "score_search",
+             "_threading_init": "init.threading", "_ss_init": "init.ss",
+             "_fragment_init": "init.fragment"}
+    real = {n: getattr(T, n) for n in names}
+    real_svd = torch.linalg.svd
+    parts = {}
+
+    def timed_part(fn, label):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                s, c = parts.get(label, (0.0, 0))
+                parts[label] = (s + time.perf_counter() - t0, c + 1)
+        return wrapper
+
+    with contextlib.ExitStack() as undo:
+        for n, label in names.items():
+            setattr(T, n, timed_part(real[n], label))
+            undo.callback(setattr, T, n, real[n])
+        torch.linalg.svd = timed_part(real_svd, "svd")
+        undo.callback(setattr, torch.linalg, "svd", real_svd)
+        _, split_wall = timed(lambda: T.tmalign_pairs(pairs, device="cuda"), torch.device("cuda"))
+    return {"pairs": len(pairs), "bucket": 256, "wall_s": wall,
+            "device_events": n_events, "device_busy_s": busy,
+            "busy_share": None if busy is None else busy / wall,
+            "top_kernels_s": [[k[:80], v] for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:6]],
+            "split_wall_s": split_wall,
+            "split_s": {k: v[0] for k, v in sorted(parts.items())},
+            "split_calls": {k: v[1] for k, v in sorted(parts.items())}}
+
+
+def tmalign_phase(dev):
+    """The device aligner on the card: against itself on the CPU per bucket
+    (fast and full), against the native aligner, pairs/s beside it, one
+    chunk under torch.profiler, and the peak memory of the largest bucket."""
+    from merizo_search_tpu_torch.align import native
+    from merizo_search_tpu_torch.align import tmalign as T
+
+    rng = np.random.default_rng(41)
+    out = {"card_vs_cpu": [], "vs_native": {}, "throughput": []}
+    full = []
+    for b, n in TM_PAIRS.items():
+        pairs, kinds = tm_pairs(rng, b, n)
+        for fast in (True, False):
+            card, card_s = timed(lambda: T.tmalign_pairs(pairs, fast=fast, device="cuda"), dev)
+            cpu, cpu_s = timed(lambda: T.tmalign_pairs(pairs, fast=fast, device="cpu"),
+                               torch.device("cpu"))
+            d = [max(abs(g["qtm"] - w["qtm"]), abs(g["ttm"] - w["ttm"])) for g, w in zip(card, cpu)]
+            close = [i for i, x in enumerate(d) if x <= TM_TOL]
+            la = max([abs(card[i]["len_ali"] - cpu[i]["len_ali"]) for i in close] + [0])
+            rm = max([abs(card[i]["rmsd"] - cpu[i]["rmsd"]) for i in close] + [0.0])
+            check(len(pairs) - len(close) <= 1 and max(d) <= TM_NEAR,
+                  f"b={b} fast={fast}: card and CPU TM-scores differ by {sorted(d)[-3:]}")
+            check(la <= 2 and rm <= 0.05, f"b={b} fast={fast}: len_ali {la}, rmsd {rm} apart")
+            out["card_vs_cpu"].append({"bucket": b, "fast": fast, "pairs": len(pairs),
+                                       "max_tm_diff": max(d), "over_tol": len(pairs) - len(close),
+                                       "max_len_ali_diff": la, "max_rmsd_diff": rm,
+                                       "card_s": card_s, "cpu_s": cpu_s})
+            if not fast:
+                full += [(p, k, g) for p, k, g in zip(pairs, kinds, card)]
+
+    nat = native.tmalign_pairs_native([p for p, _, _ in full])
+    dev_tm = [max_tm(g) for _, _, g in full]
+    nat_tm = [max_tm(r) for r in nat]
+    homo = [(a, b) for (_, k, _), a, b in zip(full, dev_tm, nat_tm) if k == "homolog"]
+    check(min(min(a, b) for a, b in homo) >= 0.9,
+          f"a homolog pair scores under 0.9: {min(min(a, b) for a, b in homo)}")
+    region = [(a, b) for a, b in zip(dev_tm, nat_tm) if 0.4 <= max(a, b) <= 0.6]
+    check(len(region) >= 8, f"only {len(region)} pairs in the decision region")
+    worst = max(abs(a - b) for a, b in region)
+    check(worst <= TM_DECISION, f"device and native differ by {worst} in the decision region")
+    unrel = [(a, b) for (_, k, _), a, b in zip(full, dev_tm, nat_tm) if k == "unrelated"]
+    check(max(max(a, b) for a, b in unrel) < 0.5, "an unrelated pair passes the 0.5 gate")
+    out["vs_native"] = {
+        "homologs": len(homo), "homolog_min_tm": min(min(a, b) for a, b in homo),
+        "decision_region_pairs": len(region), "decision_region_max_abs_diff": worst,
+        "unrelated": len(unrel),
+        "unrelated_max_deficit": max(b - a for a, b in unrel),
+        "unrelated_over_0.03": sum(b - a > 0.03 for a, b in unrel),
+        "unrelated_max_tm": max(max(a, b) for a, b in unrel)}
+
+    for b, n in TM_THROUGHPUT:
+        pairs, _ = tm_pairs(rng, b, n)
+        _, dev_s = timed(lambda: T.tmalign_pairs(pairs, device="cuda"), dev)
+        _, nat_s = timed(lambda: native.tmalign_pairs_native(pairs), torch.device("cpu"))
+        out["throughput"].append({"bucket": b, "pairs": n, "chunks": -(-n // T._dispatch_cap(b)),
+                                  "device_s": dev_s, "device_pairs_per_s": n / dev_s,
+                                  "native_s": nat_s, "native_pairs_per_s": n / nat_s,
+                                  "native_threads": os.cpu_count()})
+        if (b, n) == (256, 256):
+            out["profile"] = tmalign_profile(pairs)
+
+    b, n = TM_BIG
+    pairs, _ = tm_pairs(rng, b, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, big_s = timed(lambda: T.tmalign_pairs(pairs, fast=True, device="cuda"), dev)
+    check(all(np.isfinite(max_tm(r)) for r in res), "non-finite TM-score at b = 2048")
+    out["big"] = {"bucket": b, "pairs": n, "fast": True, "seconds": big_s,
+                  "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    torch.cuda.empty_cache()
+    return out
+
+
+def http_json(base, path, body=None):
+    """(response JSON, seconds) of one request."""
+    import urllib.request
+
+    t = time.perf_counter()
+    req = urllib.request.Request(base + path, data=None if body is None else
+                                 json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out = json.loads(resp.read())
+    return out, time.perf_counter() - t
+
+
+def burst(base, bodies, path="/search"):
+    """All bodies at once, one client thread each: (results, latencies, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(bodies)) as ex:
+        got = list(ex.map(lambda b: http_json(base, path, b), bodies))
+    return [g[0] for g in got], [g[1] for g in got], time.perf_counter() - t
+
+
+def rate(lat, wall):
+    return {"requests": len(lat), "requests_per_s": len(lat) / wall, "wall_s": wall,
+            "p50_s": float(np.percentile(lat, 50)), "p99_s": float(np.percentile(lat, 99))}
+
+
+def same_hits(got, want):
+    """Hits equal but for emb_score, which may move by 1e-4 (the JSON's 4
+    decimals): a query embedded in a batch of another size gets other GEMM
+    shapes on the card. Returns whether they are equal exactly too."""
+    check(len(got) == len(want), f"{len(got)} hits where a serial run has {len(want)}")
+    for g, w in zip(got, want):
+        check({k: v for k, v in g.items() if k != "emb_score"}
+              == {k: v for k, v in w.items() if k != "emb_score"},
+              f"a hit differs from the serial run's: {g} / {w}")
+        check(abs(g["emb_score"] - w["emb_score"]) <= 1e-4 + 1e-9,
+              f"emb_score {g['emb_score']} where a serial run has {w['emb_score']}")
+    return got == want
+
+
+def serve_phase(dev, tmp, e2e_db, e2e_runs):
+    """The server on the card over the e2e DB, through real HTTP: concurrent
+    /search bursts (native TM-align and skip_tmalign) against serial runs,
+    with and without micro-batching; /easy-search beside a burst; /healthz,
+    /stats; a service with the device aligner; and the search CLI with
+    --tmalign_backend tpu."""
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch import server as srv
+    from merizo_search_tpu_torch.tools.synthetic import helical_backbone, write_backbone_pdb
+    from merizo_search_tpu_torch.utils import profiling
+
+    prefix, weights, planted = e2e_db["prefix"], e2e_db["weights"], e2e_db["planted"]
+    qnames = sorted(planted)
+    bodies = [{"coords": c.tolist(), "seq": "A" * len(c), "name": qn, "k": 10}
+              for qn, c in zip(qnames, e2e_db["qcoords"])]
+    skip = [dict(b, skip_tmalign=True) for b in bodies]
+    out = {"db": {"rows": N_MAIN, "precision": "bf16"}, "bursts": {}}
+
+    def start(svc):
+        httpd = srv.ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(svc))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def stop(httpd):
+        httpd.shutdown()
+        httpd.server_close()
+
+    def planted_first(results, label):
+        """With TM-align the planted row is the first hit (TM >= 0.9; the
+        other planted rows' embeddings tie with it to ~1e-5 under random
+        weights, and TM-align drops them under mintm); without it, among
+        the k hits."""
+        for qn, r in zip(qnames, results):
+            targets = [h["target"] for h in r["hits"]]
+            if r["hits"] and r["hits"][0]["q_tm"] is None:
+                check(planted[qn] in targets, f"{label}: {qn} misses {planted[qn]}: {targets}")
+                continue
+            top = r["hits"][0] if r["hits"] else {}
+            check(top.get("target") == planted[qn],
+                  f"{label}: {qn} rank-1 hit is {top.get('target')}, not {planted[qn]}")
+            check(min(top["q_tm"], top["t_tm"]) >= 0.9, f"{label}: {qn} TM {top}")
+
+    reset_counts()                                 # the serve path starts here
+    t = time.perf_counter()
+    svc = srv.SearchService(prefix, precision="bf16", weights=weights, device="cuda")
+    out["boot_s"] = time.perf_counter() - t
+    httpd, base = start(svc)
+    try:
+        health, _ = http_json(base, "/healthz")
+        check(health == {"status": "ok", "db_size": N_MAIN, "mode": "device"}, f"healthz {health}")
+        serial = {"tm": [http_json(base, "/search", b)[0] for b in bodies],
+                  "skip": [http_json(base, "/search", b)[0] for b in skip]}
+        planted_first(serial["tm"], "serial")
+        planted_first(serial["skip"], "serial skip_tmalign")
+        exact = 0
+        for label, bb, want in (("tm", bodies, serial["tm"]), ("tm_again", bodies, serial["tm"]),
+                                ("skip", skip, serial["skip"])):
+            n0, r0 = svc.n_batches, svc.n_requests
+            res, lat, wall = burst(base, bb)
+            planted_first(res, label)
+            exact += sum(same_hits(g["hits"], w["hits"]) for g, w in zip(res, want))
+            nb = svc.n_batches - n0
+            check(nb < svc.n_requests - r0, f"{label}: {nb} batches for {len(bb)} requests")
+            out["bursts"][f"batched_{label}"] = dict(rate(lat, wall), batches=nb)
+
+        # /easy-search on a handler thread beside a /search burst
+        rng = np.random.default_rng(61)
+        pdb = os.path.join(tmp, "serve_easy.pdb")
+        write_backbone_pdb(pdb, helical_backbone(rng, 300), rng)
+        with open(pdb) as fh:
+            easy_body = {"pdb": fh.read(), "chain": "A", "k": 10, "name": "mdc"}
+        easy_serial, easy_s = http_json(base, "/easy-search", easy_body)
+        check(easy_serial["ndom"] >= 1 and len(easy_serial["hits_per_domain"])
+              == len(easy_serial["domains"]), f"easy-search: {easy_serial['ndom']} domains")
+        box = {}
+        th = threading.Thread(target=lambda: box.update(
+            r=http_json(base, "/easy-search", easy_body)))
+        th.start()
+        res, lat, wall = burst(base, bodies)
+        th.join()
+        easy_conc, easy_conc_s = box["r"]
+        check({k: v for k, v in easy_conc.items() if k != "hits_per_domain"}
+              == {k: v for k, v in easy_serial.items() if k != "hits_per_domain"},
+              "easy-search beside a burst cuts other domains")
+        for g, w in zip(easy_conc["hits_per_domain"], easy_serial["hits_per_domain"]):
+            exact += same_hits(g, w)
+        exact += sum(same_hits(g["hits"], w["hits"]) for g, w in zip(res, serial["tm"]))
+        out["easy_search"] = {"ndom": easy_serial["ndom"], "serial_s": easy_s,
+                              "beside_burst_s": easy_conc_s,
+                              "burst": rate(lat, wall)}
+        stats, _ = http_json(base, "/stats")
+        check(stats["requests"] == svc.n_requests and stats["search_batches"] == svc.n_batches
+              and "db_scan" in stats["phase_timings"], f"stats {stats}")
+        out["stats"] = {k: stats[k] for k in ("requests", "search_batches")}
+    finally:
+        stop(httpd)
+    first = launch_counts()
+    check(first["blockmax_scan"] > 0 and first["gather_block_scores"] > 0,
+          f"the serve path did not launch both scan kernels: {first}")
+    out["launches_first_service"] = {k: first[k] for k in ("blockmax_scan",
+                                                           "gather_block_scores")}
+    del svc
+
+    svc1 = srv.SearchService(prefix, precision="bf16", weights=weights, device="cuda", max_batch=1)
+    httpd, base = start(svc1)
+    try:
+        for label, bb, want in (("tm", bodies, serial["tm"]), ("skip", skip, serial["skip"])):
+            res, lat, wall = burst(base, bb)
+            exact += sum(same_hits(g["hits"], w["hits"]) for g, w in zip(res, want))
+            out["bursts"][f"max_batch_1_{label}"] = dict(rate(lat, wall), batches=len(bb))
+    finally:
+        stop(httpd)
+    del svc1
+    out["results_equal_to_serial_exactly"] = exact
+
+    t = time.perf_counter()
+    svc_tpu = srv.SearchService(prefix, precision="bf16", weights=weights, device="cuda", tmalign_backend="tpu")
+    out["tpu_boot_s"] = time.perf_counter() - t
+    httpd, base = start(svc_tpu)
+    try:
+        res, lat, wall = burst(base, bodies[:8])
+        for qn, r in zip(qnames[:8], res):
+            top = r["hits"][0]
+            check(top["target"] == planted[qn] and min(top["q_tm"], top["t_tm"]) >= 0.9,
+                  f"device aligner: {qn} rank-1 hit {top}")
+        out["bursts"]["device_aligner_tm"] = dict(rate(lat, wall))
+    finally:
+        stop(httpd)
+    del svc_tpu
+
+    profiling.reset()
+    res = os.path.join(tmp, "res_tpu")
+    t = time.perf_counter()
+    cli.main(["search", *e2e_db["pdbs"], prefix, res, "-k", "10", "-d", "cuda",
+              "--precision", "bf16", "--mmap_cov_filter", "--output_headers",
+              "--weights", weights, "--tmalign_backend", "tpu"])
+    torch.cuda.synchronize()
+    first = {}
+    for r in read_tsv(res + "_search.tsv"):
+        first.setdefault(r["query"], r)
+    for qn in qnames:
+        r = first.get(qn)
+        check(r is not None and r["target"] == planted[qn] and float(r["max_tm"]) >= 0.9,
+              f"search --tmalign_backend tpu: {qn} rank-1 hit {r}")
+    tt = profiling.timings()
+    out["cli_tpu"] = {"wall_s": time.perf_counter() - t,
+                      "tmalign_rescore_s": tt["tmalign_rescore"][0],
+                      "native_tmalign_rescore_s": e2e_runs["bf16"]["phase_s"]["tmalign_rescore"],
+                      "phase_s": {k: v[0] for k, v in tt.items()}}
+    torch.cuda.empty_cache()
+    return out, launch_counts()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1705,6 +2098,25 @@ def main():
                                 f"{r['invert_ms']:.4f}), per-query {r['per_query_ms']:.4f} "
                                 f"(bound {r['bound_ms']:.4f})")
 
+        with Phase("tmalign") as ph:
+            tm_out = tmalign_phase(dev)
+            for r in tm_out["throughput"]:
+                ph.notes.append(f"b={r['bucket']} {r['pairs']} pairs: device "
+                                f"{r['device_pairs_per_s']:.1f} / native "
+                                f"{r['native_pairs_per_s']:.1f} pairs/s")
+            pr = tm_out["profile"]
+            ph.notes.append(f"b=256 chunk: {pr['device_events']} device events, busy " + (
+                "not measured" if pr["busy_share"] is None else f"{pr['busy_share']:.3f}"))
+
+        with Phase("serve") as ph:
+            serve_out, serve_counts = serve_phase(dev, tmp, e2e_db, runs)
+            for k, r in serve_out["bursts"].items():
+                ph.notes.append(f"{k}: {r['requests_per_s']:.2f} req/s, p50 {r['p50_s']:.3f} s, "
+                                f"p99 {r['p99_s']:.3f} s")
+            ph.notes.append(f"search --tmalign_backend tpu: tmalign_rescore "
+                            f"{serve_out['cli_tpu']['tmalign_rescore_s']:.3f} s (native "
+                            f"{serve_out['cli_tpu']['native_tmalign_rescore_s']:.3f} s)")
+
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
             its path gives it (search kernels: the e2e bf16 run's Q = 32,
@@ -1722,18 +2134,22 @@ def main():
             entry("blockmax_scan", "merizo_search_tpu_torch/csrc/blockmax.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:65", bm_modes,
                   {"dtype": "bf16", "q": 32, "mask": True, "n": -(-N_MAIN // 128) * 128},
-                  launches["blockmax_scan"] + sum(c["blockmax_scan"] for c in ivf_counts.values()),
+                  launches["blockmax_scan"] + sum(c["blockmax_scan"] for c in ivf_counts.values())
+                  + serve_counts["blockmax_scan"],
                   cover=cover, launches_by_path={
                       "search": launches["blockmax_scan"],
+                      "serve": serve_counts["blockmax_scan"],
                       **{f"ivf_{k}": c["blockmax_scan"] for k, c in ivf_counts.items()}}),
             entry("gather_block_scores", "merizo_search_tpu_torch/csrc/gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:644", g_modes,
                   {"dtype": "bf16", "q": 32, "n": -(-N_MAIN // 128) * 128},
                   launches["gather_block_scores"]
-                  + sum(c["gather_block_scores"] for c in ivf_counts.values()),
+                  + sum(c["gather_block_scores"] for c in ivf_counts.values())
+                  + serve_counts["gather_block_scores"],
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)",
                   launches_by_path={
                       "search": launches["gather_block_scores"],
+                      "serve": serve_counts["gather_block_scores"],
                       **{f"ivf_{k}": c["gather_block_scores"] for k, c in ivf_counts.items()},
                       **{f"ivf_{k}_by_block": c["gather_block_scores_by_block"]
                          for k, c in ivf_counts.items()},
@@ -1805,12 +2221,14 @@ def main():
                                             **{f"stream_{k}": v for k, v in stream_counts.items()},
                                             **{f"easy_search_{k}": v
                                                for k, v in easy_counts.items()},
-                                            **{f"ivf_{k}": v for k, v in ivf_counts.items()}},
+                                            **{f"ivf_{k}": v for k, v in ivf_counts.items()},
+                                            "serve": serve_counts},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(json.dumps({"createdb": cdb, "segment": seg}), flush=True)
         print(json.dumps({"stream": stream, "easy_search": easy}), flush=True)
         print(json.dumps({"phase_a_split": splits}), flush=True)
         print(json.dumps({"ivf": ivf_out}), flush=True)
+        print(json.dumps({"tmalign": tm_out, "serve": serve_out}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

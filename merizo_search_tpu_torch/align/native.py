@@ -11,12 +11,15 @@ with g++ into the package's `_build/` directory on first use.
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import threading
 
 import numpy as np
 
 from .seqid import seq_identity_count
+
+logger = logging.getLogger(__name__)
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "_native", "tmalign.cpp")
@@ -44,6 +47,16 @@ def load():
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads (the failure is logged)."""
+    try:
+        load()
+    except Exception as e:  # noqa: BLE001  (g++ missing or failing)
+        logger.warning("native TM-align unavailable: %s", e)
+        return False
+    return True
 
 
 def _pack(structs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -1,10 +1,11 @@
 """Command-line interface of the port: the `segment`, `createdb`, `search`,
-`easy-search` and `dbinfo` verbs.
+`easy-search`, `serve` and `dbinfo` verbs.
 
     python -m merizo_search_tpu_torch.cli segment input.pdb [...] output [flags]
     python -m merizo_search_tpu_torch.cli createdb input_dir out_db [flags]
     python -m merizo_search_tpu_torch.cli search query.pdb [...] db_name output [tmp] [flags]
     python -m merizo_search_tpu_torch.cli easy-search query.pdb [...] db_name output [tmp] [flags]
+    python -m merizo_search_tpu_torch.cli serve db_name [--host H --port P] [flags]
     python -m merizo_search_tpu_torch.cli dbinfo db_name [flags]
 
 The same positionals, flags, defaults and output files as the JAX package's
@@ -13,9 +14,10 @@ choosing the device (default cuda; asking for cuda without a card is an
 error, not a fallback; dbinfo needs no device). `--trace DIR` records a
 torch.profiler trace. `--search_index ivf [--nprobe N --nlist M
 --ivf_rerank]` searches through the IVF index (device or stream mode).
-Flags of modes the port does not run yet (--mesh, --tmalign_backend tpu)
-raise NotImplementedError;
-ROADMAP.md lists them in the order they come. `serve` is a later slice.
+`--tmalign_backend tpu` rescores hits with the batched device aligner on
+`-d`'s device. `serve` keeps the DB and the models resident and answers
+/search and /easy-search over HTTP (server.py). The mesh mode (--mesh) is
+not ported yet and raises NotImplementedError (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import time
 logger = logging.getLogger(__name__)
 
 USAGE = """Usage: python -m merizo_search_tpu_torch.cli <mode> <args>
-    <mode> is one of: 'segment', 'createdb', 'search', 'easy-search' or
-    'dbinfo' ('serve' is not ported yet).
+    <mode> is one of: 'segment', 'createdb', 'search', 'easy-search',
+    'serve', or 'dbinfo'.
     Detailed help: python -m merizo_search_tpu_torch.cli <mode> --help"""
 
 
@@ -92,8 +94,10 @@ def _add_search_flags(p: argparse.ArgumentParser):
                    help="Skip TM rescoring (embedding scores only).")
     p.add_argument("--tmalign_backend", type=str, default="auto",
                    choices=["auto", "native", "tpu"],
-                   help="'auto' and 'native' run the in-process C++ TM-align; "
-                        "the batched device aligner ('tpu') is not ported yet.")
+                   help="'auto' and 'native' run the in-process C++ TM-align "
+                        "('auto' takes the device aligner only if g++ fails); "
+                        "'tpu' runs the batched device aligner on -d's device, "
+                        "re-checking hits near --mintm natively.")
     p.add_argument("--mesh", type=int, default=0,
                    help="Shard the DB across this many devices (not ported yet).")
     p.add_argument("--precision", type=str, default="bf16",
@@ -165,11 +169,8 @@ def _merizo_kw(args):
 
 
 def _reject_unported(args):
-    unported = [(args.mesh, "--mesh"),
-                (args.tmalign_backend == "tpu", "--tmalign_backend tpu")]
-    for given, flag in unported:
-        if given:
-            _reject(flag)
+    if args.mesh:
+        _reject("--mesh")
 
 
 def _fix_positional_tail(args) -> None:
@@ -218,7 +219,7 @@ def _do_search(args, inputs, inputs_are_ca, pdb_chain, fields_default):
         model=model, threads=max(args.threads, 0), precision=args.precision,
         search_index=args.search_index, nprobe=args.nprobe, nlist=args.nlist,
         ivf_rerank=args.ivf_rerank, mmap_cov_filter=args.mmap_cov_filter,
-        device=args.device)
+        tmalign_backend=args.tmalign_backend, device=args.device)
 
     with profiling.phase("write_results"):
         write_search_results(results, search_output, fields,
@@ -398,6 +399,54 @@ def createdb(argv):
     return n
 
 
+def serve(argv):
+    """Run the persistent search server (parity: the JAX package's `serve`:
+    the same flags and defaults, with -d cuda|cpu)."""
+    p = argparse.ArgumentParser(
+        prog="merizo_search_tpu_torch serve",
+        description="Run a persistent search server: DB resident on the card, "
+                    "models loaded once, queries over HTTP.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("db_name", type=str)
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8086)
+    _add_device_flag(p)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="Shard the DB across this many devices (not ported yet).")
+    p.add_argument("--precision", type=str, default="bf16",
+                   choices=["fp32", "bf16", "int8"])
+    p.add_argument("--weights", type=str, default=None)
+    p.add_argument("--merizo_weights", type=str, default=None)
+    p.add_argument("--tmalign_backend", type=str, default="auto",
+                   choices=["auto", "native", "tpu"])
+    p.add_argument("--search_index", type=str, default="flat",
+                   choices=["flat", "ivf"])
+    p.add_argument("--nprobe", type=int, default=32)
+    p.add_argument("--nlist", type=int, default=0)
+    p.add_argument("--ivf_rerank", action="store_true", default=False,
+                   help="Exact f32 re-rank of the top probed blocks "
+                        "(see search --help).")
+    p.add_argument("--max_batch", type=int, default=64,
+                   help="Dynamic micro-batching: concurrent /search requests "
+                        "coalesce into batches up to this size (1 disables).")
+    p.add_argument("--batch_window_ms", type=float, default=4.0,
+                   help="Max time a /search request lingers for co-batched "
+                        "requests.")
+    args = p.parse_args(argv)
+    _reject_unported(args)
+
+    from .server import serve as run_server
+
+    return run_server(args.db_name, host=args.host, port=args.port,
+                      precision=args.precision, weights=args.weights,
+                      merizo_weights=args.merizo_weights,
+                      tmalign_backend=args.tmalign_backend,
+                      search_index=args.search_index, nprobe=args.nprobe,
+                      nlist=args.nlist, ivf_rerank=args.ivf_rerank,
+                      max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+                      device=args.device)
+
+
 def dbinfo(argv):
     """Inspect / verify a Foldclass database (parity: the reference's
     standalone dbutil.py harness, dbutil.py:148-205, which prints name/seq
@@ -486,7 +535,7 @@ def main(argv=None):
         print(f"merizo-search-tpu-torch {__version__}")
         return
     verbs = {"segment": segment, "createdb": createdb, "search": search,
-             "easy-search": easy_search, "dbinfo": dbinfo}
+             "easy-search": easy_search, "serve": serve, "dbinfo": dbinfo}
     if mode not in verbs:
         print(f"Mode {mode!r} is not available: the PyTorch/CUDA port runs "
               f"{', '.join(repr(v) for v in verbs)} (ROADMAP.md lists the "

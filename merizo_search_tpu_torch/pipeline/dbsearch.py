@@ -5,7 +5,8 @@ twin of the JAX package's `run_dbsearch`, with the same flow and filters:
 
   batched query embedding (bucketed)  ->  SearchEngine (device or stream
   mode)  ->
-  ONE batched native TM-align call for every surviving query-hit pair  ->
+  ONE batched TM-align call (native, or the device aligner) for every
+  surviving query-hit pair  ->
   per-query result dicts.
 
 Filter parity (deliberately faithful to each reference path):
@@ -61,7 +62,8 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
                  engine: SearchEngine | None = None,
                  threads: int = 0, precision: str = "bf16", search_index: str = "flat",
                  nprobe: int = 32, nlist: int = 0, ivf_rerank: bool = False,
-                 mmap_cov_filter: bool = False, device: str = "cuda"):
+                 mmap_cov_filter: bool = False, tmalign_backend: str = "auto",
+                 device: str = "cuda"):
     """Search queries against a database.
 
     inputs: list of PDB/mmCIF paths, or (inputs_are_ca=True) of dicts with
@@ -70,7 +72,9 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
     onto `device`). engine: a prebuilt SearchEngine over the DB (else one
     is opened at `precision`, streaming superblocks of `search_batchsize`
     rows when the DB exceeds the device budget, with the `search_index`
-    "flat" or "ivf" and the IVF's nprobe, nlist and ivf_rerank). Returns (search_results,
+    "flat" or "ivf" and the IVF's nprobe, nlist and ivf_rerank).
+    tmalign_backend: "auto", "native" or "tpu" (the device aligner, on
+    `device`; hits near `mintm` are re-checked natively). Returns (search_results,
     all_search_results): per query, a dict {rank: hit_dict} of significant
     / insignificant hits.
     """
@@ -142,7 +146,9 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
         with profiling.phase("tmalign_rescore"):
             pairs = [(queries[qi], {"coords": db.coords(i), "seq": db.seq(i)})
                      for qi, _, _, i in cand]
-            tms = rescore_pairs(pairs, fast=fastmode, nthreads=max(threads, 0))
+            tms = rescore_pairs(pairs, fast=fastmode, backend=tmalign_backend,
+                                nthreads=max(threads, 0), decision_tm=mintm,
+                                device=device)
 
     n_excl = 0
     for (qi, rank, v, i), tm in zip(cand, tms):

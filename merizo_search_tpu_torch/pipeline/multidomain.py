@@ -215,8 +215,9 @@ def multi_domain_search(queries, search_results, db_name: str,
 
     queries: list of PDB paths (search mode) or of per-domain dicts from the
     segment stage (easy-search). Returns list of result tuples or None.
-    tmalign_backend: "auto" or "native" (the C++ TM-align); the device
-    aligner ("tpu") is not ported yet and raises. model: a loaded
+    tmalign_backend: "auto", "native" (the C++ TM-align) or "tpu" (the
+    device aligner on `device`, pairs near `mintm` re-checked natively).
+    model: a loaded
     FoldClassNet for embscore mode (else loaded from `weights`, None: the
     default weights, onto `device`).
 
@@ -233,10 +234,6 @@ def multi_domain_search(queries, search_results, db_name: str,
     """
     if mode not in ("exhaustive_tmalign", "embscore"):
         raise ValueError(f"Unrecognised multi-domain search mode: {mode}")
-    if tmalign_backend not in ("auto", "native"):
-        raise NotImplementedError(
-            f"--tmalign_backend {tmalign_backend} is not ported to the PyTorch "
-            "package yet (ROADMAP.md, queue 1)")
     nq = len(queries)
     if nq == 1:
         logger.warning("Cannot execute multi-domain search with only one query domain.")
@@ -319,7 +316,9 @@ def multi_domain_search(queries, search_results, db_name: str,
                         qc, len(qds), len(entries))
             pairs = [(q, {"coords": e["coords"], "seq": e["seq"]})
                      for q in q_structs for e in entries]
-            tms = rescore_pairs(pairs, fast=fastmode, nthreads=max(threads, 0))
+            tms = rescore_pairs(pairs, fast=fastmode, backend=tmalign_backend,
+                                nthreads=max(threads, 0), decision_tm=mintm,
+                                device=device)
             mtx = np.asarray([max(t["qtm"], t["ttm"]) for t in tms]).reshape(
                 len(qds), len(entries))
         mtx[mtx < mintm] = 0.0

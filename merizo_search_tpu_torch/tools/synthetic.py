@@ -33,7 +33,8 @@ def _helix(n: int) -> np.ndarray:
     return out
 
 
-def _rotation(rng) -> np.ndarray:
+def rotation(rng) -> np.ndarray:
+    """A random proper rotation [3, 3] (QR of a Gaussian matrix)."""
     q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
     return q * np.sign(np.linalg.det(q))
 
@@ -46,7 +47,7 @@ def helical_backbone(rng, n: int, domain_len=(80, 160), helix_len=(12, 20)) -> n
         if 0 < n - done - size < 30:        # no stub domain at the end
             size = n - done
         centre = 40.0 * np.array([d % 4, (d // 4) % 4, d // 16], float)
-        rot = _rotation(rng)
+        rot = rotation(rng)
         k, placed = 0, 0
         while placed < size:
             h = min(int(rng.integers(*helix_len)), size - placed)

@@ -43,7 +43,7 @@ def test_port_has_the_slice_modules():
               "segment.postprocess", "segment.pipeline", "segment.outputs",
               "utils.residues", "tools.synthetic", "pipeline.multidomain",
               "utils.profiling", "search.ivf", "segment.evaluate",
-              "tools.ivf_curve"):
+              "tools.ivf_curve", "align.kabsch", "align.tmalign", "server"):
         assert f"merizo_search_tpu_torch.{m}" in mods
 
 

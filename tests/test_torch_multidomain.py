@@ -188,7 +188,17 @@ def test_multi_domain_search_matches_jax(chain_db, mode, mintm):
 
 
 def test_multi_domain_search_one_query_and_device_aligner(chain_db):
+    """One query domain gives no result; the device aligner (backend "tpu",
+    here on the CPU) gives the JAX package's device-aligner rows, with
+    TM-scores within 1e-3 (tests/test_torch_tmalign.py's tolerance)."""
     prefix, queries, hits = chain_db
     assert tmd.multi_domain_search(queries[:1], hits[:1], prefix, device="cpu") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmd.multi_domain_search(queries, hits, prefix, tmalign_backend="tpu", device="cpu")
+    kw = dict(inputs_from_easy_search=True, tmalign_backend="tpu")
+    want = jmd.multi_domain_search(queries, hits, prefix, **kw)
+    got = tmd.multi_domain_search(queries, hits, prefix, device="cpu", **kw)
+    assert got and len(got) == len(want)
+    for g, w in zip(got, want):
+        gr, gs = _split(g)
+        wr, ws = _split(w)
+        assert gr == wr
+        np.testing.assert_allclose(gs, ws, atol=1e-3)
