@@ -132,10 +132,32 @@ server) on the card and checks them:
             a service with the device aligner answering 8 planted requests;
             and `search --tmalign_backend tpu` over the e2e DB, its
             tmalign_rescore seconds beside the native run's.
+16. mesh    the mesh modes (one process, a tuple of devices): four shards
+            on one card ((cuda:0,) * 4), and with two or more cards the
+            flat and IVF checks again on distinct cards. Device mode over
+            the e2e DB (500,000 rows, bf16 and int8, Q 32, k 100, mincov
+            0.7) and over the stream phase's 2^24-row DB in bf16 (Q 256);
+            stream mode over that DB (bf16 and int8, a quarter GiB a
+            device: 64 superblocks, each cut into four slices); the IVF
+            over the ivf phase's DB and cached layout (nlist 1024 with
+            duplicates, nprobe 32, Q 256, k 100; bf16, bf16 + rerank,
+            int8). Each against the one-device engine: scores bit for bit,
+            ids equal except among tied scores, every scan kernel of the
+            path launched once a shard (a superblock). The data-parallel
+            embed of 512 structures within 1e-4 of one device;
+            `search --mesh 4` (its TSV equal to the e2e bf16 run's) and
+            `createdb --mesh 4` over 128 of the createdb phase's files
+            (embeddings within 1e-4 of that build), both shrunk to the
+            cards there are with JAX's warning; a service with the DB on
+            four shards answering a burst of /search equal to serial
+            requests. Prints ms a call (stream: rows/s) on four shards and
+            on one, the card's busy share in one mesh flat and one mesh
+            IVF call (torch.profiler), and the number of distinct cards
+            the phase used.
 
 Each path (e2e, pipelined, probes, variants, createdb's search, stream,
 easy-search, the ivf phase's device, stream, small-batch stream and CLI
-runs, serve) starts with
+runs, serve, each mesh path) starts with
 every kernel's launch count at 0 and fails unless each of its kernels was launched. The
 2^24-row rows of phases 3 and 6-8 share one bf16 and one int8 DB a run (the
 tools' synthetic DB); the kernel table takes the times and bounds of the
@@ -146,8 +168,8 @@ Prints one line per phase with its seconds, a JSON line of the tools'
 results, a JSON line {"createdb": ..., "segment": ...} of phases 9-10, a
 JSON line {"stream": ..., "easy_search": ...} of phases 11-12, a
 JSON line {"phase_a_split": [...]}, a JSON line {"ivf": ...} of phase 13,
-a JSON line {"tmalign": ..., "serve": ...} of phases 14-15, the nvidia-smi
-line, a JSON
+a JSON line {"tmalign": ..., "serve": ...} of phases 14-15, a JSON line
+{"mesh": ...} of phase 16, the nvidia-smi line, a JSON
 line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
@@ -177,7 +199,7 @@ TOTAL_BUDGET_S = 650       # hard watchdog: dump stacks and exit(1) past this
 PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
                   "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
                   "segment": 90, "stream": 240, "easy_search": 150, "ivf": 120,
-                  "tmalign": 180, "serve": 120}
+                  "tmalign": 180, "serve": 120, "mesh": 90}
 N_MAIN = 500_000           # CATH-scale DB rows (BASELINE.json's second config)
 N_BIG = 16_777_216         # the 16M-row scan shape
 BF16_TOL = 1e-5            # |kernel - plain| for unit-norm bf16 rows
@@ -1499,7 +1521,7 @@ def ivf_phase(dev, tmp, e2e_db, flush):
               f"CLI IVF: {qname} rank-1 hit is {r['target']}")
     out["cli"] = {"phase_s": {k: v[0] for k, v in profiling.timings().items()},
                   "queries": len(first), "planted_rank1": True}
-    return out, counts, rows, bb_rows
+    return out, counts, rows, bb_rows, {"prefix": prefix, "q": q}
 
 
 EASY_LENGTHS = (300, 600, 900, 1500)
@@ -1967,6 +1989,282 @@ def serve_phase(dev, tmp, e2e_db, e2e_runs):
     return out, launch_counts()
 
 
+MESH_SHARDS = 4            # mesh phase: shards of every mesh path
+MESH_CREATEDB = 128        # structures of the `createdb --mesh` run
+MESH_EMBED = 512           # structures of the data-parallel embed
+
+
+def same_result(got, want, label):
+    """A mesh's (scores, ids) against one device's: scores bit for bit, ids
+    equal except among tied scores (any of the tied entries may be kept at
+    the k-th score). Returns the number of tied entries."""
+    check(np.array_equal(got[0], want[0]), f"{label}: scores differ from one device's")
+    ties = 0
+    for va, ia, ib in zip(got[0], got[1], want[1]):
+        for v in np.unique(va):
+            tied = va == v
+            if tied.sum() == 1:
+                check(ia[tied] == ib[tied], f"{label}: an id differs from one device's")
+            else:
+                ties += int(tied.sum())
+                check(v == va[-1] or sorted(ia[tied]) == sorted(ib[tied]),
+                      f"{label}: tied ids differ from one device's")
+    return ties
+
+
+def call_ms(fns, iters=5):
+    """Host ms a call of each of fns (searches that end in numpy, so each
+    call waits for its device work), timed in turns: a, b, b, a."""
+    for fn in fns:
+        fn()
+    times = {i: [] for i in range(len(fns))}
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fns[i]()
+        times[i].append((time.perf_counter() - t) / iters * 1e3)
+    return [float(np.mean(times[i])) for i in range(len(fns))]
+
+
+def mesh_phase(dev, tmp, e2e_db, ivf_db):
+    """The mesh modes on the card (module docstring, phase 16). Returns
+    (readings, launch counts by path)."""
+    import logging
+
+    from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch import server as srv
+    from merizo_search_tpu_torch.db.codecs import FlatDB
+    from merizo_search_tpu_torch.device import make_mesh
+    from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
+    from merizo_search_tpu_torch.search.engine import SearchEngine
+
+    ncards = torch.cuda.device_count()
+    shards = (torch.device("cuda", 0),) * MESH_SHARDS        # four shards on one card
+    meshes = {"one_card": shards}
+    if ncards >= 2:
+        meshes["cards"] = make_mesh(1 << (ncards.bit_length() - 1), "cuda")
+    used = set(shards)
+    out = {"shards": MESH_SHARDS, "devices": [str(d) for d in shards],
+           "note": "shards on one card measure the mesh's overhead (a launch a shard, the "
+                   "partial copies, the merge), not a multi-card speed-up",
+           "flat": {}, "stream": {}, "ivf": {}}
+    counts = {}
+
+    def profile(fn):
+        """One call under torch.profiler: the card's busy share and the
+        kernels with the most device time (section 5 of PERF.md)."""
+        wall, busy, top, _, events = device_busy(fn)
+        return {"wall_s": wall, "device_busy_s": busy, "device_events": events,
+                "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_s": top}
+
+    def run_path(label, mesh, eng, fn, want, per_shard):
+        """One mesh path from 0 counts: its result against one device's,
+        each scan kernel of the path launched per_shard times a shard."""
+        reset_counts()
+        got = fn(eng)
+        c = counts[label] = launch_counts()
+        for name, n in per_shard.items():
+            check(c[name] == n * len(mesh), f"{label}: {name} launched {c[name]} times, "
+                  f"not {n} on each of {len(mesh)} shards")
+        used.update(mesh)
+        return same_result(got, want, label)
+
+    rng = np.random.default_rng(71)
+
+    def unit(n):
+        x = rng.normal(size=(n, 128)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    # (a) flat device mode: the e2e DB (CATH scale), Q 32, k 100, mincov 0.7
+    e2e = FlatDB.open(e2e_db["prefix"])
+    q32, qlen = unit(32), rng.integers(50, 401, 32)
+    for prec in ("bf16", "int8"):
+        one = SearchEngine(e2e, prec, "cuda")
+        fn = lambda e: e.search(q32, 100, query_lens=qlen, mincov=0.7)  # noqa: E731
+        want = fn(one)
+        for name, mesh in meshes.items():
+            m = SearchEngine(e2e, prec, "cuda", mesh=mesh)
+            m.search(q32[:1], 100)                                      # residency
+            label = f"flat_{prec}" + ("" if name == "one_card" else f"_{name}")
+            ties = run_path(label, mesh, m, fn, want,
+                            {"blockmax_scan": 1, "gather_block_scores": 1})
+            ms, one_ms = call_ms([lambda: fn(m), lambda: fn(one)])
+            out["flat"][label] = {"rows": e2e.size, "q": 32, "k": 100, "mincov": 0.7,
+                                  "shards": len(mesh), "tied_entries": ties,
+                                  "ms_a_call": ms, "one_device_ms_a_call": one_ms}
+            if label == "flat_bf16":
+                out["flat"][label]["profile"] = {"mesh": profile(lambda: fn(m)),
+                                                 "one_device": profile(lambda: fn(one))}
+        del one, m
+    # (b) 2^24 rows bf16 (the stream phase's DB, 4 GiB: a TED superblock's
+    # scale) resident on the shards, Q 256, k 100
+    big = FlatDB.open(os.path.join(tmp, "stream", "db"))
+    q256 = unit(256)
+    one = SearchEngine(big, "bf16", "cuda")
+    fn = lambda e: e.search(q256, 100)                                  # noqa: E731
+    want = fn(one)
+    m = SearchEngine(big, "bf16", "cuda", mesh=shards)
+    m.search(q256[:1], 100)
+    ties = run_path("flat16m_bf16", shards, m, fn, want,
+                    {"blockmax_scan": 1, "gather_block_scores": 1})
+    ms, one_ms = call_ms([lambda: fn(m), lambda: fn(one)], iters=3)
+    out["flat"]["flat16m_bf16"] = {"rows": big.size, "q": 256, "k": 100, "shards": MESH_SHARDS,
+                                   "tied_entries": ties, "ms_a_call": ms,
+                                   "one_device_ms_a_call": one_ms}
+    del one, m
+    torch.cuda.empty_cache()
+    # (c) stream mode over the same DB: a budget of a quarter GiB a device
+    # streams it at both precisions on four shards too
+    gb = N_BIG * 128 / 2 ** 33
+    for prec in ("bf16", "int8"):
+        kw = dict(max_device_gb=gb, stream_block=STREAM_BLOCK)
+        one = SearchEngine(big, prec, "cuda", **kw)
+        m = SearchEngine(big, prec, "cuda", mesh=shards, **kw)
+        check(one.mode == m.mode == "stream", f"stream {prec}: not streamed")
+        fn = lambda e: e.search(q32, 100)                               # noqa: E731
+        want = fn(one)
+        one_stats = dict(one.stream_stats)
+        nsb = N_BIG // STREAM_BLOCK
+        ties = run_path(f"stream_{prec}", shards, m, fn, want,
+                        {"blockmax_scan": nsb, "gather_block_scores": nsb})
+        check(m.stream_stats["superblocks"] == nsb, f"stream {prec}: superblocks")
+        out["stream"][prec] = {"rows": N_BIG, "q": 32, "k": 100, "superblocks": nsb,
+                               "tied_entries": ties, "stats": dict(m.stream_stats),
+                               "rows_per_s": m.stream_stats["rows_per_s"],
+                               "one_device_rows_per_s": one_stats["rows_per_s"]}
+        del one, m
+    # (d) IVF: the ivf phase's DB and cached layout (2^20 rows, nlist 1024,
+    # duplicates), nprobe 32, Q 256, k 100
+    idb, qi = FlatDB.open(ivf_db["prefix"]), ivf_db["q"]
+    for prec, rerank in (("bf16", False), ("bf16", True), ("int8", False)):
+        kw = dict(index="ivf", ivf_nlist=IVF_NLIST, ivf_nprobe=IVF_PROBE, ivf_rerank=rerank)
+        one = SearchEngine(idb, prec, "cuda", **kw)
+        fn = lambda e: e.search(qi, IVF_K)                              # noqa: E731
+        want = fn(one)
+        for name, mesh in meshes.items():
+            m = SearchEngine(idb, prec, "cuda", mesh=mesh, **kw)
+            m.search(qi[:1], IVF_K)
+            check(one.ivf_build_s is None and m.ivf_build_s is None,
+                  "a mesh IVF engine rebuilt the cached layout")
+            check(all(sh["dup"] for sh in m._shards), "the IVF layout has no duplicates")
+            label = f"ivf_{prec}" + ("_rerank" if rerank else "") + (
+                "" if name == "one_card" else f"_{name}")
+            ties = run_path(label, mesh, m, fn, want,
+                            {"gather_block_scores_by_block": 2 if rerank else 1,
+                             "gather_block_scores_by_block.f32": int(rerank),
+                             "blockmax_scan": 0, "gather_block_scores": 0})
+            ms, one_ms = call_ms([lambda: fn(m), lambda: fn(one)])
+            out["ivf"][label] = {"rows": idb.size, "nlist": IVF_NLIST, "nprobe": IVF_PROBE,
+                                 "q": len(qi), "k": IVF_K, "shards": len(mesh),
+                                 "tied_entries": ties, "ms_a_call": ms,
+                                 "one_device_ms_a_call": one_ms}
+            if label == "ivf_bf16":
+                out["ivf"][label]["profile"] = {"mesh": profile(lambda: fn(m)),
+                                                "one_device": profile(lambda: fn(one))}
+        del one, m
+    torch.cuda.empty_cache()
+
+    # (e) the data-parallel embed: MESH_EMBED structures of the createdb phase's DB
+    built = FlatDB.open(os.path.join(tmp, "built", "db"))
+    coords = [built.coords(i) for i in range(MESH_EMBED)]
+    model = load_foldclass_params(None, dev)
+    embed_structures(model, coords[:8], mesh=shards)                    # warm
+    t = time.perf_counter()
+    one_e = embed_structures(model, coords)
+    one_s = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh_e = embed_structures(model, coords, mesh=shards)
+    mesh_s = time.perf_counter() - t
+    err = float(np.abs(mesh_e - one_e).max())
+    check(err <= 1e-4, f"the data-parallel embed differs from one device's by {err}")
+    out["embed"] = {"structures": MESH_EMBED, "shards": MESH_SHARDS, "max_abs_err": err,
+                    "seconds": mesh_s, "one_device_seconds": one_s}
+
+    # (f) the CLI: --mesh 4 shrinks to the cards there are, with JAX's warning
+    class Grab(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    grab = Grab()
+    logging.getLogger("merizo_search_tpu_torch.device").addHandler(grab)
+    cli_mesh = min(MESH_SHARDS, ncards)
+    try:
+        reset_counts()
+        res = os.path.join(tmp, "res_mesh")
+        cli.main(["search", *e2e_db["pdbs"], e2e_db["prefix"], res, "-k", "10", "-d", "cuda",
+                  "--precision", "bf16", "--mmap_cov_filter", "--output_headers",
+                  "--weights", e2e_db["weights"], "--mesh", str(MESH_SHARDS)])
+        torch.cuda.synchronize()
+        c = counts["cli_search"] = launch_counts()
+        check(c["blockmax_scan"] == c["gather_block_scores"] == cli_mesh,
+              f"search --mesh: launches {c}")
+        with open(res + "_search.tsv") as a, open(os.path.join(tmp, "res_bf16_search.tsv")) as b:
+            check(a.read() == b.read(), "search --mesh wrote another TSV than search")
+        sub = os.path.join(tmp, "mesh_createdb_in")
+        os.makedirs(sub)
+        names = sorted(os.listdir(os.path.join(tmp, "createdb_in")))[:MESH_CREATEDB]
+        for f in names:
+            os.symlink(os.path.join(tmp, "createdb_in", f), os.path.join(sub, f))
+        mprefix = os.path.join(tmp, "mesh_built", "db")
+        t = time.perf_counter()
+        cli.main(["createdb", sub, mprefix, "-d", "cuda", "--db_format", "mmap",
+                  "--mesh", str(MESH_SHARDS)])
+        cdb_s = time.perf_counter() - t
+    finally:
+        logging.getLogger("merizo_search_tpu_torch.device").removeHandler(grab)
+    warn = (f"requested mesh of {MESH_SHARDS} devices but only {ncards} available; "
+            f"using {ncards}")
+    if ncards < MESH_SHARDS:
+        check(grab.lines == [warn, warn], f"--mesh warnings: {grab.lines}")
+    mdb = FlatDB.open(mprefix)
+    want_names = [f[:-4] for f in names]
+    check([mdb.name(i) for i in range(mdb.size)] == want_names, "createdb --mesh: entries")
+    cerr = float(np.abs(np.asarray(mdb.embeddings())
+                        - np.asarray(built.embeddings()[:MESH_CREATEDB])).max())
+    check(cerr <= 1e-4, f"createdb --mesh embeddings differ from createdb's by {cerr}")
+    used.update(torch.device("cuda", i) for i in range(cli_mesh))
+    out["cli"] = {"mesh_flag": MESH_SHARDS, "devices": cli_mesh, "warnings": grab.lines,
+                  "search_tsv_equal": True, "createdb_structures": MESH_CREATEDB,
+                  "createdb_s": cdb_s, "createdb_max_abs_err": cerr}
+
+    # (g) a service with the DB on four shards answers a burst of /search
+    planted = e2e_db["planted"]
+    qnames = sorted(planted)
+    bodies = [{"coords": c.tolist(), "seq": "A" * len(c), "name": qn, "k": 10,
+               "skip_tmalign": True} for qn, c in zip(qnames, e2e_db["qcoords"])]
+    reset_counts()
+    t = time.perf_counter()
+    svc = srv.SearchService(e2e_db["prefix"], precision="bf16", weights=e2e_db["weights"],
+                            device="cuda", mesh=shards)
+    boot_s = time.perf_counter() - t
+    httpd = srv.ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(svc))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        serial = [http_json(base, "/search", b)[0] for b in bodies]
+        res, lat, wall = burst(base, bodies)
+        exact = sum(same_hits(g["hits"], w["hits"]) for g, w in zip(res, serial))
+        for qn, r in zip(qnames, res):
+            check(planted[qn] in [h["target"] for h in r["hits"]],
+                  f"mesh service: {qn} misses its planted row")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    c = counts["serve"] = launch_counts()
+    check(c["blockmax_scan"] > 0 and c["blockmax_scan"] % MESH_SHARDS == 0
+          and c["gather_block_scores"] == c["blockmax_scan"], f"mesh service: launches {c}")
+    out["serve"] = dict(rate(lat, wall), boot_s=boot_s, shards=MESH_SHARDS,
+                        equal_to_serial_exactly=exact, requests_served=svc.n_requests)
+    del svc
+    torch.cuda.empty_cache()
+    out["cards"] = len(used)
+    return out, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2079,7 +2377,7 @@ def main():
                     f"A {r['launches']['blockmax_scan']} C {r['launches']['gather_block_scores']}")
 
         with Phase("ivf") as ph:
-            ivf_out, ivf_counts, ivf_rows, bb_rows = ivf_phase(dev, tmp, e2e_db, flush)
+            ivf_out, ivf_counts, ivf_rows, bb_rows, ivf_db = ivf_phase(dev, tmp, e2e_db, flush)
             g_modes += ivf_rows
             cfg = ivf_out["curve"]
             ph.notes.append(f"build {cfg['build_s']:.2f} s (" + ", ".join(
@@ -2117,6 +2415,19 @@ def main():
                             f"{serve_out['cli_tpu']['tmalign_rescore_s']:.3f} s (native "
                             f"{serve_out['cli_tpu']['native_tmalign_rescore_s']:.3f} s)")
 
+        with Phase("mesh") as ph:
+            mesh_out, mesh_counts = mesh_phase(dev, tmp, e2e_db, ivf_db)
+            for part in ("flat", "ivf"):
+                for k, r in mesh_out[part].items():
+                    ph.notes.append(f"{k}: {r['ms_a_call']:.3f} ms a call on {r['shards']} "
+                                    f"shards, {r['one_device_ms_a_call']:.3f} on one")
+            for k, r in mesh_out["stream"].items():
+                ph.notes.append(f"stream {k}: {r['rows_per_s']:.4g} rows/s on "
+                                f"{MESH_SHARDS} shards, {r['one_device_rows_per_s']:.4g} on one")
+            e = mesh_out["embed"]
+            ph.notes.append(f"embed of {MESH_EMBED}: {e['seconds']:.2f} s on {MESH_SHARDS} shards, "
+                            f"{e['one_device_seconds']:.2f} on one; cards {mesh_out['cards']}")
+
         def entry(name, source, replaces, modes, main, launched, **extra):
             """One kernel: top-level numbers are those of the configuration
             its path gives it (search kernels: the e2e bf16 run's Q = 32,
@@ -2135,17 +2446,21 @@ def main():
                   "merizo_search_tpu/ops/pallas_scan.py:65", bm_modes,
                   {"dtype": "bf16", "q": 32, "mask": True, "n": -(-N_MAIN // 128) * 128},
                   launches["blockmax_scan"] + sum(c["blockmax_scan"] for c in ivf_counts.values())
-                  + serve_counts["blockmax_scan"],
+                  + serve_counts["blockmax_scan"]
+                  + sum(c["blockmax_scan"] for c in mesh_counts.values()),
                   cover=cover, launches_by_path={
                       "search": launches["blockmax_scan"],
                       "serve": serve_counts["blockmax_scan"],
-                      **{f"ivf_{k}": c["blockmax_scan"] for k, c in ivf_counts.items()}}),
+                      **{f"ivf_{k}": c["blockmax_scan"] for k, c in ivf_counts.items()},
+                      **{f"mesh_{k}": c["blockmax_scan"] for k, c in mesh_counts.items()
+                         if not k.startswith("ivf")}}),
             entry("gather_block_scores", "merizo_search_tpu_torch/csrc/gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:644", g_modes,
                   {"dtype": "bf16", "q": 32, "n": -(-N_MAIN // 128) * 128},
                   launches["gather_block_scores"]
                   + sum(c["gather_block_scores"] for c in ivf_counts.values())
-                  + serve_counts["gather_block_scores"],
+                  + serve_counts["gather_block_scores"]
+                  + sum(c["gather_block_scores"] for c in mesh_counts.values()),
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)",
                   launches_by_path={
                       "search": launches["gather_block_scores"],
@@ -2154,13 +2469,18 @@ def main():
                       **{f"ivf_{k}_by_block": c["gather_block_scores_by_block"]
                          for k, c in ivf_counts.items()},
                       "ivf_device_by_block_f32": ivf_counts["device"][
-                          "gather_block_scores_by_block.f32"]},
+                          "gather_block_scores_by_block.f32"],
+                      **{f"mesh_{k}": c["gather_block_scores"] for k, c in mesh_counts.items()
+                         if not k.startswith("ivf")},
+                      **{f"mesh_{k}_by_block": c["gather_block_scores_by_block"]
+                         for k, c in mesh_counts.items() if k.startswith("ivf")}},
                   f32_mode={k: ivf_rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
                                                         "bound_by", "max_abs_err", "q", "kb")},
                   by_block=bb_rows),
             entry("gather_block_scores_by_block", "merizo_search_tpu_torch/csrc/gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:644", bb_rows, {"dtype": "bf16"},
-                  sum(c["gather_block_scores_by_block"] for c in ivf_counts.values()),
+                  sum(c["gather_block_scores_by_block"] for c in ivf_counts.values())
+                  + sum(c["gather_block_scores_by_block"] for c in mesh_counts.values()),
                   kernels="inversion bb_count, bb_alloc (gather.cu); CTA bodies "
                           "gather_by_block, gather_by_block_f32 (gather.cuh)",
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode: "
@@ -2169,7 +2489,11 @@ def main():
                       **{f"ivf_{k}": c["gather_block_scores_by_block"]
                          for k, c in ivf_counts.items()},
                       "ivf_device_f32_mode": ivf_counts["device"][
-                          "gather_block_scores_by_block.f32"]},
+                          "gather_block_scores_by_block.f32"],
+                      **{f"mesh_{k}": c["gather_block_scores_by_block"]
+                         for k, c in mesh_counts.items() if k.startswith("ivf")},
+                      **{f"mesh_{k}_f32_mode": c["gather_block_scores_by_block.f32"]
+                         for k, c in mesh_counts.items() if "rerank" in k}},
                   yardstick="per_query_ms: gather_block_scores on the same inputs, timed in "
                             "turns; equal to it bit for bit"),
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
@@ -2222,13 +2546,15 @@ def main():
                                             **{f"easy_search_{k}": v
                                                for k, v in easy_counts.items()},
                                             **{f"ivf_{k}": v for k, v in ivf_counts.items()},
-                                            "serve": serve_counts},
+                                            "serve": serve_counts,
+                                            **{f"mesh_{k}": v for k, v in mesh_counts.items()}},
                           "total_s": round(time.perf_counter() - T0, 2)}), flush=True)
         print(json.dumps({"createdb": cdb, "segment": seg}), flush=True)
         print(json.dumps({"stream": stream, "easy_search": easy}), flush=True)
         print(json.dumps({"phase_a_split": splits}), flush=True)
         print(json.dumps({"ivf": ivf_out}), flush=True)
         print(json.dumps({"tmalign": tm_out, "serve": serve_out}), flush=True)
+        print(json.dumps({"mesh": mesh_out}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,8 +16,10 @@ torch.profiler trace. `--search_index ivf [--nprobe N --nlist M
 --ivf_rerank]` searches through the IVF index (device or stream mode).
 `--tmalign_backend tpu` rescores hits with the batched device aligner on
 `-d`'s device. `serve` keeps the DB and the models resident and answers
-/search and /easy-search over HTTP (server.py). The mesh mode (--mesh) is
-not ported yet and raises NotImplementedError (ROADMAP.md, queue 1).
+/search and /easy-search over HTTP (server.py). `--mesh N` on `search`,
+`easy-search`, `createdb` and `serve` shards the DB (createdb: the embed)
+over N devices of `-d`'s type (device.make_mesh: N cards, fewer with a
+warning where there are fewer; N shards on the CPU).
 """
 
 from __future__ import annotations
@@ -58,11 +60,6 @@ def _add_trace_flag(p: argparse.ArgumentParser):
                    help="Record a torch.profiler trace (Chrome trace JSON) into DIR.")
 
 
-def _reject(flag: str):
-    raise NotImplementedError(
-        f"{flag} is not ported to the PyTorch package yet (ROADMAP.md, queue 1)")
-
-
 def _add_search_flags(p: argparse.ArgumentParser):
     _add_device_flag(p)
     p.add_argument("-k", "--topk", type=int, default=1,
@@ -99,7 +96,8 @@ def _add_search_flags(p: argparse.ArgumentParser):
                         "'tpu' runs the batched device aligner on -d's device, "
                         "re-checking hits near --mintm natively.")
     p.add_argument("--mesh", type=int, default=0,
-                   help="Shard the DB across this many devices (not ported yet).")
+                   help="Shard the DB across this many devices of -d's type "
+                        "(0: no mesh).")
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["fp32", "bf16", "int8"],
                    help="On-device DB storage for the scan: bf16 and int8 run the "
@@ -168,11 +166,6 @@ def _merizo_kw(args):
     )
 
 
-def _reject_unported(args):
-    if args.mesh:
-        _reject("--mesh")
-
-
 def _fix_positional_tail(args) -> None:
     """Disambiguate `input+ db_name output [tmp]`: argparse's greedy match
     leaves tmp=None and feeds the extra value to `input`. When that happened
@@ -195,6 +188,7 @@ def _fix_positional_tail(args) -> None:
 def _do_search(args, inputs, inputs_are_ca, pdb_chain, fields_default):
     """The search stage shared by `search` and `easy-search`: scan, TM-align
     rescore, the TSVs, and the multi-domain search on request."""
+    from .device import make_mesh
     from .io.results import (check_for_database, parse_output_format,
                              write_all_dom_search_results, write_search_results)
     from .pipeline.dbsearch import run_dbsearch
@@ -219,7 +213,8 @@ def _do_search(args, inputs, inputs_are_ca, pdb_chain, fields_default):
         model=model, threads=max(args.threads, 0), precision=args.precision,
         search_index=args.search_index, nprobe=args.nprobe, nlist=args.nlist,
         ivf_rerank=args.ivf_rerank, mmap_cov_filter=args.mmap_cov_filter,
-        tmalign_backend=args.tmalign_backend, device=args.device)
+        tmalign_backend=args.tmalign_backend, device=args.device,
+        mesh=make_mesh(args.mesh, args.device))
 
     with profiling.phase("write_results"):
         write_search_results(results, search_output, fields,
@@ -258,7 +253,6 @@ def search(argv):
     p.add_argument("--pdb_chain", type=str, default="A")
     _add_search_flags(p)
     args = p.parse_args(argv)
-    _reject_unported(args)
     _fix_positional_tail(args)
     _ensure_parent(args.output)
     t0 = time.time()
@@ -291,7 +285,6 @@ def easy_search(argv):
     _add_search_flags(p)
     _add_merizo_flags(p)
     args = p.parse_args(argv)
-    _reject_unported(args)
     _fix_positional_tail(args)
     _ensure_parent(args.output)
     t0 = time.time()
@@ -359,6 +352,7 @@ def segment(argv):
 
 
 def createdb(argv):
+    from .device import make_mesh
     from .pipeline.createdb import run_createdb
     from .utils import profiling
 
@@ -380,20 +374,19 @@ def createdb(argv):
                    help="Path to a Foldclass state dict (.pt); default: the JAX "
                         "package's default weights.")
     p.add_argument("--mesh", type=int, default=0,
-                   help="Embed data-parallel across devices (not ported yet).")
+                   help="Embed data parallel across this many devices of -d's "
+                        "type (0: no mesh).")
     _add_trace_flag(p)
     args = p.parse_args(argv)
     if args.precision and args.db_format != "mmap":
         p.error("--precision requires --db_format mmap")
-    if args.mesh:
-        _reject("--mesh")
     _ensure_parent(args.out_db)
 
     t0 = time.time()
     with profiling.trace(args.trace):
         n = run_createdb(args.input_dir, args.out_db, weights=args.weights,
                          fmt=args.db_format, resume=args.resume, device=args.device,
-                         sidecar=args.precision)
+                         sidecar=args.precision, mesh=make_mesh(args.mesh, args.device))
     profiling.report(logger)
     logger.info("Finished createdb in %.3f seconds.", time.time() - t0)
     return n
@@ -412,7 +405,8 @@ def serve(argv):
     p.add_argument("--port", type=int, default=8086)
     _add_device_flag(p)
     p.add_argument("--mesh", type=int, default=0,
-                   help="Shard the DB across this many devices (not ported yet).")
+                   help="Shard the DB across this many devices of -d's type "
+                        "(0: no mesh).")
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["fp32", "bf16", "int8"])
     p.add_argument("--weights", type=str, default=None)
@@ -433,8 +427,8 @@ def serve(argv):
                    help="Max time a /search request lingers for co-batched "
                         "requests.")
     args = p.parse_args(argv)
-    _reject_unported(args)
 
+    from .device import make_mesh
     from .server import serve as run_server
 
     return run_server(args.db_name, host=args.host, port=args.port,
@@ -444,7 +438,7 @@ def serve(argv):
                       search_index=args.search_index, nprobe=args.nprobe,
                       nlist=args.nlist, ivf_rerank=args.ivf_rerank,
                       max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
-                      device=args.device)
+                      device=args.device, mesh=make_mesh(args.mesh, args.device))
 
 
 def dbinfo(argv):

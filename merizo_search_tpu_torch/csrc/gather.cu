@@ -74,10 +74,14 @@ cudaError_t launch_gather_f32(const float* q, const float* db, const float* tl,
 //      atomicAdd a warp on hdr[0]);
 //   4. bb_count again, scattering: each entry takes a place in its list
 //      (atomicAdd on the cursor).
-// Then the scoring kernel on min(nb, M) + 1 CTAs: one a distinct block, the
-// rest fill the padding list.
+// Then the scoring kernel on min(nb, M) + ceil(M / PAD_SLOTS) CTAs: one a
+// distinct block, the rest fill the padding list. Padding can be most of
+// the slots (a mesh shard's probe: the other shards' clusters are -1), so
+// the padding list gets CTAs by M, each writing at most PAD_SLOTS slots;
+// where there is no padding they find an empty list and exit.
 
 constexpr int COUNT_THREADS = 256;
+constexpr int PAD_SLOTS = 64;
 
 // Workspace sections in int32s, each a multiple of 4 (16-byte aligned):
 // cnt [8(nb+1)] (histogram, then cursor) and hdr [4] (zeroed together),
@@ -230,7 +234,7 @@ extern "C" int mst_gather_by_block(int dtype, const void* q, const void* db, con
   by_block_ws(nb, m, sec);
   const ByBlock cs{w + sec[2], w + sec[3], w + sec[1], w + sec[4], nb};
   auto o = static_cast<float*>(out);
-  const int grid = (int)std::min<long long>(nb, m) + 1;
+  const int grid = (int)(std::min<long long>(nb, m) + (m + PAD_SLOTS - 1) / PAD_SLOTS);
   if (dtype == 0)
     return launch_by_block(gather_by_block_kernel<Bf16>, by_block_smem<Bf16>(), grid, s,
                            static_cast<const __nv_bfloat16*>(q),

@@ -252,7 +252,8 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
 // list, come from atomics and may change from run to run; the output does
 // not.
 //
-// Design: one CTA a distinct block (and a few for the padding list), with
+// Design: one CTA a distinct block (and one per 64 slots for the padding
+// list, which a mesh shard's probe fills mostly), with
 // no ring: the block's cp.async copies are in flight while the CTA loads
 // its list offsets and stages its slots (list entry, query cap, scale) in
 // shared memory, so the chain of dependent loads before the dot is short

@@ -119,9 +119,10 @@ def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
     out = torch.empty((nq, nb), dtype=torch.float32, device=dev)
     if nq == 0:
         return out
-    rc = _build.library().mst_blockmax_scan(
-        _DTYPE_CODE[db.dtype], *args, out.data_ptr(), nq, nb, int(n_valid),
-        *launch_geometry(q, nb), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
+        rc = _build.library().mst_blockmax_scan(
+            _DTYPE_CODE[db.dtype], *args, out.data_ptr(), nq, nb, int(n_valid),
+            *launch_geometry(q, nb), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan")
     launches += 1
     return out

@@ -119,9 +119,10 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
     out = torch.empty((nq, kb * BLOCK), dtype=torch.float32, device=q.device)
     if nq == 0 or kb == 0:
         return out
-    rc = _build.library().mst_gather_block_scores(
-        _GATHER_CODE[db.dtype], *args, out.data_ptr(), nq, kb, int(n_valid),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the launch and its smem attribute: q's card
+        rc = _build.library().mst_gather_block_scores(
+            _GATHER_CODE[db.dtype], *args, out.data_ptr(), nq, kb, int(n_valid),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(rc, "gather_block_scores")
     launches += 1
     launches_f32 += db.dtype == torch.float32
@@ -178,8 +179,10 @@ def invert_blocks(bidx, nb: int):
     lib = _build.library()
     sec = (ctypes.c_longlong * 5)()    # cnt, hdr, off, dist, list
     ws = torch.empty(lib.mst_by_block_ws(nb, m, sec), dtype=torch.int32, device=bidx.device)
-    rc = lib.mst_invert_blocks(_build.ptr(bidx, "bidx", torch.int32, (nq, kb)), ws.data_ptr(),
-                               nq, kb, nb, torch.cuda.current_stream(bidx.device).cuda_stream)
+    with torch.cuda.device(bidx.device):
+        rc = lib.mst_invert_blocks(_build.ptr(bidx, "bidx", torch.int32, (nq, kb)),
+                                   ws.data_ptr(), nq, kb, nb,
+                                   torch.cuda.current_stream(bidx.device).cuda_stream)
     _build.check_launch(rc, "invert_blocks")
     ws = ws.long()
     off = ws[sec[2]:sec[2] + (nb + 1) * (RES + 1)].view(nb + 1, RES + 1)
@@ -225,9 +228,10 @@ def gather_block_scores_by_block(q, db, bidx, n_valid: int, tl=None, qcap=None,
     nb = db.shape[0] // BLOCK
     ws = torch.empty(lib.mst_by_block_ws(nb, nq * kb, None), dtype=torch.int32,
                      device=q.device)
-    rc = lib.mst_gather_by_block(
-        _GATHER_CODE[db.dtype], *args, optr, ws.data_ptr(), nq, kb, nb, int(n_valid),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        rc = lib.mst_gather_by_block(
+            _GATHER_CODE[db.dtype], *args, optr, ws.data_ptr(), nq, kb, nb, int(n_valid),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(rc, "gather_block_scores_by_block")
     launches_by_block += 1
     launches_by_block_f32 += db.dtype == torch.float32

@@ -112,9 +112,10 @@ def gather_variant(q, db, bidx, mode: str, g: int = G):
     out = torch.empty((nq, kb // g, g, BLOCK), dtype=torch.float32, device=dev)
     sink = torch.zeros((1,), dtype=torch.int32, device=dev)
     if nq and kb:
-        rc = _build.library().mst_gather_variant(
-            _DTYPE_CODE[db.dtype], MODES.index(mode), *args, out.data_ptr(),
-            sink.data_ptr(), nq, kb, g, torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):   # the launch and its smem attribute: q's card
+            rc = _build.library().mst_gather_variant(
+                _DTYPE_CODE[db.dtype], MODES.index(mode), *args, out.data_ptr(),
+                sink.data_ptr(), nq, kb, g, torch.cuda.current_stream(dev).cuda_stream)
         _build.check_launch(rc, "gather_variant")
         launches[mode] += 1
     if mode == "full":

@@ -93,10 +93,11 @@ def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
     prev = torch.empty((nqp, kb * BLOCK), dtype=torch.float32, device=dev)
     if nq == 0 and (nqp == 0 or kb == 0):
         return bm, prev
-    rc = _build.library().mst_bm_gather(
-        _DTYPE_CODE[db.dtype], *args, bm.data_ptr(), nq, nb, int(n_valid),
-        *launch_geometry(q, nb), *pv, prev.data_ptr(), nqp, kb,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
+        rc = _build.library().mst_bm_gather(
+            _DTYPE_CODE[db.dtype], *args, bm.data_ptr(), nq, nb, int(n_valid),
+            *launch_geometry(q, nb), *pv, prev.data_ptr(), nqp, kb,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan_gather")
     launches += 1
     return bm, prev

@@ -113,9 +113,10 @@ def _kernel_call(q, db, tile, nslab, reduce_mode):
     lib, stream = _build.library(), torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.mst_mini_scan(_DTYPE_CODE[db.dtype], *args, out.data_ptr(), parts.data_ptr(),
-                               nq, nsteps, nbt, (tile // nslab) // BLOCK,
-                               int(reduce_mode == "reduce"), qg, bpc, stream)
+        with torch.cuda.device(dev):   # the launch and its smem attribute: q's card
+            rc = lib.mst_mini_scan(_DTYPE_CODE[db.dtype], *args, out.data_ptr(),
+                                   parts.data_ptr(), nq, nsteps, nbt, (tile // nslab) // BLOCK,
+                                   int(reduce_mode == "reduce"), qg, bpc, stream)
         _build.check_launch(rc, "mini_scan")
         launches["mini_scan"] += 1
 
@@ -201,9 +202,10 @@ def stream_probe(x, i: float, tile: int):
     nsteps, d = x.shape[0] // tile, x.shape[1]
     o = torch.full((8, d), float(i), dtype=torch.float32, device=dev)
     sink = torch.zeros((1,), dtype=torch.int32, device=dev)
-    rc = _build.library().mst_stream_probe(
-        _build.ptr(x, "x", torch.int8, device=dev), o.data_ptr(), sink.data_ptr(),
-        d, tile, nsteps, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _build.library().mst_stream_probe(
+            _build.ptr(x, "x", torch.int8, device=dev), o.data_ptr(), sink.data_ptr(),
+            d, tile, nsteps, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "stream_probe")
     launches["stream_probe"] += 1
     return o, sink[0].to(torch.int64) & 0xFFFFFFFF

@@ -91,10 +91,11 @@ def slab_scan(q, db, n_valid: int, tile: int = TILE, nslab: int = 2, scales=None
     part = torch.empty((nq, npad // tile, nslab), dtype=torch.float32, device=dev) if sbm else None
     if nq == 0:
         return bm, None if part is None else part.amax(dim=2)
-    rc = _build.library().mst_slab_scan(
-        _DTYPE_CODE[db.dtype], nslab, *args, bm.data_ptr(),
-        None if part is None else part.data_ptr(), nq, npad // BLOCK, int(n_valid),
-        query_groups(nq), tile // BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
+        rc = _build.library().mst_slab_scan(
+            _DTYPE_CODE[db.dtype], nslab, *args, bm.data_ptr(),
+            None if part is None else part.data_ptr(), nq, npad // BLOCK, int(n_valid),
+            query_groups(nq), tile // BLOCK, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "slab_scan")
     launches += 1
     return bm, None if part is None else part.amax(dim=2)

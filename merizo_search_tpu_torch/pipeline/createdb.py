@@ -6,7 +6,8 @@ the JAX package's builder:
 
 - structures are parsed with the CA reader (native C++ scan, numpy
   fallback) on an 8-thread pool, grouped into length buckets and embedded
-  as masked batches on the model's device (pipeline.embed);
+  as masked batches on the model's device, or data parallel over a mesh
+  (pipeline.embed);
 - output is the reference pt layout or the mmap layout (scales to DBs far
   larger than RAM), optionally with an int8/bf16 embedding sidecar;
 - mmap builds are resumable: progress is the writer's entry count, and a
@@ -55,14 +56,15 @@ def _parse(path):
 def run_createdb(input_dir: str, out_db: str, weights: str | None = None,
                  fmt: str = "pt", resume: bool = False,
                  chunk_files: int = 4096, model=None, device="cuda",
-                 sidecar: str | None = None) -> int:
+                 sidecar: str | None = None, mesh=None) -> int:
     """Build a database. Returns the number of entries written.
 
     fmt: "pt" (reference small-DB layout) or "mmap" (large, resumable).
     model: a loaded Foldclass network (its device is the one used); else
-    it is loaded from `weights` (None: the default weights) onto `device`.
-    sidecar: "int8" or "bf16" adds a quantised embedding sidecar to an mmap
-    build (codecs.write_quantized_sidecar).
+    it is loaded from `weights` (None: the default weights) onto `device`
+    (with a mesh, onto mesh[0]). mesh: devices (device.make_mesh) to embed
+    on data parallel. sidecar: "int8" or "bf16" adds a quantised embedding
+    sidecar to an mmap build (codecs.write_quantized_sidecar).
     """
     if fmt not in ("pt", "mmap"):
         raise ValueError(f"unknown db format: {fmt}")
@@ -70,7 +72,7 @@ def run_createdb(input_dir: str, out_db: str, weights: str | None = None,
     logger.info("%d PDB files found in model directory. Will generate Foldclass database..",
                 len(files))
     if model is None:
-        model = load_foldclass_params(weights, device)
+        model = load_foldclass_params(weights, device if mesh is None else mesh[0])
 
     progress_path = out_db + ".progress"
     skip_files = 0
@@ -104,7 +106,7 @@ def run_createdb(input_dir: str, out_db: str, weights: str | None = None,
 
         if names:
             with profiling.phase("createdb.embed"):
-                embs = embed_structures(model, coords)
+                embs = embed_structures(model, coords, mesh=mesh)
             with profiling.phase("createdb.write"):
                 for j, name in enumerate(names):
                     if fmt == "mmap":

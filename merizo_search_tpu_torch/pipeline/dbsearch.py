@@ -63,7 +63,7 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
                  threads: int = 0, precision: str = "bf16", search_index: str = "flat",
                  nprobe: int = 32, nlist: int = 0, ivf_rerank: bool = False,
                  mmap_cov_filter: bool = False, tmalign_backend: str = "auto",
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
     """Search queries against a database.
 
     inputs: list of PDB/mmCIF paths, or (inputs_are_ca=True) of dicts with
@@ -72,7 +72,9 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
     onto `device`). engine: a prebuilt SearchEngine over the DB (else one
     is opened at `precision`, streaming superblocks of `search_batchsize`
     rows when the DB exceeds the device budget, with the `search_index`
-    "flat" or "ivf" and the IVF's nprobe, nlist and ivf_rerank).
+    "flat" or "ivf" and the IVF's nprobe, nlist and ivf_rerank, sharded
+    over `mesh` (device.make_mesh) when one is given; the queries are
+    embedded on `device` alone, as in JAX).
     tmalign_backend: "auto", "native" or "tpu" (the device aligner, on
     `device`; hits near `mintm` are re-checked natively). Returns (search_results,
     all_search_results): per query, a dict {rank: hit_dict} of significant
@@ -88,7 +90,8 @@ def run_dbsearch(inputs, db_name: str, topk: int = 1, fastmode: bool = False,
     if engine is None:
         engine = SearchEngine(FlatDB.open(db_name), dtype=precision, device=device,
                               stream_block=search_batchsize, index=search_index,
-                              ivf_nlist=nlist, ivf_nprobe=nprobe, ivf_rerank=ivf_rerank)
+                              ivf_nlist=nlist, ivf_nprobe=nprobe, ivf_rerank=ivf_rerank,
+                              mesh=mesh)
     db = engine.db
     use_cov_filters = db.kind == "pt" or mmap_cov_filter
 

@@ -1,15 +1,14 @@
 """The search engine: cosine top-k over a Foldclass DB.
 
-The JAX package's engine modes on one device:
+The JAX package's engine modes:
 
-- "device": the whole DB lives in the memory of one device in its storage
-  precision, with the per-row target lengths beside it for the mincov
-  channel;
+- "device": the whole DB lives in device memory in its storage precision,
+  with the per-row target lengths beside it for the mincov channel;
 - "stream": a DB over the device budget (`max_device_gb`, the JAX default
-  of 8 GB) is scanned in superblocks of `stream_block` rows, read from the
-  host (np.memmap, or the quantised sidecars natively) by a small thread
-  pool, staged to the card and merged once at the end
-  (`ops/topk.merge_partials`).
+  of 8 GB, times the devices of the mesh) is scanned in superblocks of
+  `stream_block` rows, read from the host (np.memmap, or the quantised
+  sidecars natively) by a small thread pool, staged to the device and
+  merged once at the end (`ops/topk.merge_partials`).
 
 and two indexes over each (`index`):
 
@@ -32,12 +31,23 @@ and two indexes over each (`index`):
   coalesced runs, through the same staging as the flat stream, running
   the fused scan on each group of clusters.
 
+With a `mesh` (device.py: a tuple of devices, one process) the DB is
+sharded by rows, the JAX package's `build_mesh_search` and
+`build_mesh_ivf_search`: each device holds an equal run of whole 128-row
+blocks (device IVF: of nlist/ndev whole clusters, the centroids on every
+device), scans it with the same kernels as one device does, and each
+shard's [Q, k] partial is copied to the first device and merged there
+(`merge_partials`; a layout with duplicates dedups by id). In stream mode
+each staged superblock or cluster group is split into one row slice a
+device, each device with its own slots and copy stream. A mesh of one
+device takes the mesh path too, as in JAX.
+
 On the card the stream mode stages through a ring of pinned host buffers,
 which the pool's threads fill straight from the memmap; each item is
 copied on a side stream into one of three device slots and scanned on the
 current stream once its copy's event has fired, so the scan of item i
 overlaps the copy of i+1 and the host reads of the ones after it. A pinned
-buffer is refilled only after its copy's event has completed, a device
+buffer is refilled only after its copies' events have completed, a device
 slot is rewritten only after the scan that read it, and the host waits on
 the scan two items back (the JAX engine's backpressure). Nothing in the
 loop reads a device value; the stream IVF reads its probe union before
@@ -47,7 +57,6 @@ Lazy builds (residency, the IVF layout, the disk sidecars) run under a
 lock with double-checked state, so threads that search one fresh engine
 build once; the disk sidecars also take an `fcntl` lock on a `.lock` file
 beside them, so two processes sharing a DB do not interleave their writes.
-The mesh mode is a later slice of the port (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -64,7 +73,7 @@ import numpy as np
 import torch
 
 from ..db.codecs import FlatDB
-from ..device import resolve_device
+from ..device import resolve_device, resolve_mesh
 from ..ops import topk as topk_ops
 from ..ops.fused_scan import fused_topk
 from ..utils import profiling
@@ -75,7 +84,7 @@ logger = logging.getLogger(__name__)
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _STAGE = 1 << 18   # rows per host staging chunk (128 MB of f32 at dim 128)
-MAX_DEVICE_GB = 8.0  # the JAX engine's device-mode budget; larger DBs stream
+MAX_DEVICE_GB = 8.0  # the JAX engine's device-mode budget a device; larger DBs stream
 DEVICE_SLOTS = 3     # superblocks on the card at once in stream mode
 _DISK_PRECISION = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -126,66 +135,137 @@ def _ordered_prefetch(items, fn, threads: int | None = None):
         ex.shutdown(wait=False, cancel_futures=True)
 
 
+def scan_rows(query, rows, n_valid: int, k: int, tlen, qlen, mincov: float,
+              use_len: bool, scales=None):
+    """Top-k of one resident DB, shard or staged slice on its device:
+    query = (qd, qs) (ops.topk.query_operands: int8 with per-row scales),
+    rows [Npad, 128] in the storage dtype (rows >= n_valid are padding),
+    tlen [Npad] (None where the length channel is off in stream mode),
+    scales the int8 block scales. bf16 and int8 run the fused scan, f32 the
+    plain exact scan. Returns device tensors (vals [Q, k], idxs [Q, k])."""
+    qd, qs = query
+    if rows.dtype == torch.float32:
+        return topk_ops.topk_scan(
+            qd, rows, n_valid, k, tlen=tlen if use_len else None,
+            qlen=qlen if use_len else None, mincov=mincov)
+    vals, idxs = fused_topk(qd, rows, n_valid, k, tlen=tlen, qlen=qlen,
+                            mincov=mincov, use_len=use_len, scales=scales)
+    if qs is not None:
+        # per-query dequantisation (positive, so -inf stays -inf)
+        vals = vals * qs[:, None]
+    return vals, idxs
+
+
+def shard_topk(rep, shard: dict, me: int, n_valid: int, k: int, mincov: float,
+               use_len: bool):
+    """Shard me's top-k (scan_rows) of equal row shards of R rows: the rows
+    [me*R, (me+1)*R) of a DB or staged item of n_valid valid rows. The
+    shard scans local_valid = clip(n_valid - me*R, 0, R) rows, and its ids
+    move by me*R, or, for a staged IVF group, map through its "perm" to
+    the DB's. rep = (qd, qs, qlen) on the shard's device; shard = {"rows",
+    "tlen", "scales", "perm"} (the last three optional)."""
+    nrows = shard["rows"].shape[0]
+    qd, qs, qlen = rep
+    local = min(max(n_valid - me * nrows, 0), nrows)
+    v, i = scan_rows((qd, qs), shard["rows"], local, k, shard.get("tlen"), qlen, mincov,
+                     use_len, shard.get("scales"))
+    if "perm" in shard:
+        i = torch.where(i >= 0, shard["perm"][i.clamp(min=0)], -1)
+    elif me:
+        i = torch.where(i >= 0, i + me * nrows, i)
+    return v, i
+
+
+def mesh_search(reps, shards, n_valid: int, k: int, mincov: float = 0.0,
+                use_len: bool = False):
+    """The scan sharded over a mesh, the counterpart of the JAX package's
+    `build_mesh_search`: shard_topk on each shard (one a device, each
+    with its rep), every shard's launches issued before the first copy;
+    the shards' [Q, k] partials are copied to the first shard's device
+    (its all_gather) and merged there (merge_partials). Returns (vals,
+    idxs) on that device."""
+    parts = [shard_topk(rep, sh, me, n_valid, k, mincov, use_len)
+             for me, (rep, sh) in enumerate(zip(reps, shards))]
+    dev0 = shards[0]["rows"].device
+    return topk_ops.merge_partials(
+        torch.stack([v.to(dev0, non_blocking=True) for v, _ in parts]),
+        torch.stack([i.to(dev0, non_blocking=True) for _, i in parts]), k)
+
+
 class SearchEngine:
     """Top-k search over a FlatDB.
 
     dtype: "fp32", "bf16" or "int8" (or the torch dtype): the on-device
-    storage of the DB. device: "cuda" (default) or "cpu". max_device_gb:
-    the device-mode budget; a DB larger than it in its storage dtype runs
-    the stream mode in superblocks of stream_block rows (int8: rounded down
-    to a multiple of 128, so superblocks start on scale blocks; stream IVF:
-    groups of whole clusters, at least one).
+    storage of the DB. device: "cuda" (default) or "cpu". mesh: a sequence
+    of devices (device.make_mesh, or an explicit list, which may repeat a
+    device) to shard the DB over; `device` is then mesh[0]. max_device_gb:
+    the device-mode budget a device; a DB larger than it times the devices
+    in its storage dtype runs the stream mode in superblocks of
+    stream_block rows (int8: rounded down to a multiple of 128, so
+    superblocks start on scale blocks; stream IVF: groups of whole
+    clusters, at least one).
     index: "flat" (exact) or "ivf". ivf_nlist: clusters (0: ~sqrt(N), a
-    power of two, at least 16); ivf_nprobe: clusters probed a query;
-    ivf_rerank: rescore the top blocks from an f32 sidecar in device mode
-    (+4 bytes a dim a row of device memory; values are then exact f32).
+    power of two, at least 16; rounded up to a multiple of the mesh's
+    devices); ivf_nprobe: clusters probed a query; ivf_rerank: rescore the
+    top blocks from an f32 sidecar in device mode (+4 bytes a dim a row of
+    device memory; values are then exact f32).
     """
 
     def __init__(self, db: FlatDB, dtype="bf16", device="cuda",
                  max_device_gb: float = MAX_DEVICE_GB, stream_block: int = 2 ** 21,
                  index: str = "flat", ivf_nlist: int = 0, ivf_nprobe: int = 32,
-                 ivf_rerank: bool = False):
+                 ivf_rerank: bool = False, mesh=None):
         self.db = db
         self.dtype = DTYPES.get(dtype, dtype)
         if self.dtype not in _ITEMSIZE:
             raise ValueError(f"unsupported storage dtype {dtype!r}")
         if index not in ("flat", "ivf"):
             raise ValueError(f"unknown index type: {index}")
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else resolve_mesh(mesh)
+        self.devices = self.mesh or (resolve_device(device),)
+        self.device = self.devices[0]
+        ndev = len(self.devices)
         db_bytes = db.size * db.dim * _ITEMSIZE[self.dtype]
-        self.mode = "device" if db_bytes <= max_device_gb * (1 << 30) else "stream"
+        budget = max_device_gb * (1 << 30) * ndev
+        self.mode = "device" if db_bytes <= budget else "stream"
         self.stream_block = stream_block
         self.index = index
         self.ivf_nprobe = ivf_nprobe
         self.ivf_rerank = ivf_rerank
         self.ivf_nlist = ivf_nlist or max(16, 1 << int(
             np.ceil(np.log2(max(np.sqrt(db.size), 16)))))
+        if self.ivf_nlist % ndev:
+            # shard boundaries on cluster boundaries
+            self.ivf_nlist = -(-self.ivf_nlist // ndev) * ndev
         # the last stream search's readings: superblocks (stream IVF: cluster
         # groups, clusters and rows staged), rows/s, the pool's staging
         # seconds (summed over threads), the consumer's wait for it, and on
         # the card the copies' and the scans' spans (CUDA events on the side
-        # and compute streams; a scan's span includes the host's gaps
-        # between its launches)
+        # and compute streams, summed over the mesh's devices; a scan's span
+        # includes the host's gaps between its launches)
         self.stream_stats = None
         self.ivf_build_s = None   # seconds of the IVF build, when this engine built one
         self._init_lock = threading.Lock()
-        self._demb = None
-        self._ivf = None
+        self._shards = None       # device mode: one dict a device (IVF: its layout)
         self._sivf = None
+
+    def _where(self) -> str:
+        return ", ".join(str(d) for d in self.devices)
 
     # -- residency ----------------------------------------------------------
     def _load_resident(self):
-        """Copy the DB to the device in its storage dtype, once (double-
-        checked under the lock), padded to a multiple of 128 rows (padding
+        """Copy the DB to the devices in its storage dtype, once (double-
+        checked under the lock): one shard a device of an equal run of
+        128-row blocks, padded to a multiple of 128 rows a device (padding
         rows are zeros with length 1e9, so the length channel masks them
         too). int8 reads the DB's int8 sidecar where there is one, else
         quantises f32 rows per 128-row block; bf16 reads the bf16 sidecar
         where there is one. index="ivf" loads the permuted layout instead
         (_load_ivf_resident)."""
-        if self._demb is not None:
+        if self._shards is not None:
             return
         with self._init_lock:
-            if self._demb is not None:
+            if self._shards is not None:
                 return
             with profiling.phase("db_resident"):
                 self._load_resident_now()
@@ -195,40 +275,57 @@ class SearchEngine:
             self._load_ivf_resident()
             return
         t0 = time.time()
+        n = self.db.size
+        rows = -(-n // (len(self.devices) * topk_ops.BLOCK)) * topk_ops.BLOCK
+        shards = [self._resident_rows(me * rows, (me + 1) * rows, dev)
+                  for me, dev in enumerate(self.devices)]
+        self._n_valid = n
+        self._shards = shards       # last: the double-checked state
+        logger.info("DB resident on %s: %d rows %s (%.2f GB, %.2fs)", self._where(),
+                    n, str(self.dtype).replace("torch.", ""),
+                    rows * len(shards) * self.db.dim * _ITEMSIZE[self.dtype] / 2 ** 30,
+                    time.time() - t0)
+
+    def _resident_rows(self, lo: int, hi: int, dev) -> dict:
+        """Rows [lo, hi) of the padded DB on `dev` (lo a multiple of 128, so
+        int8 sidecar reads and scale blocks start on block boundaries):
+        {"rows", "tlen", "scales" (int8, else None)}, _STAGE rows at a
+        time through the host."""
         db, n, dim = self.db, self.db.size, self.db.dim
-        npad = -(-n // topk_ops.BLOCK) * topk_ops.BLOCK
         quant = self.dtype == torch.int8
-        demb = torch.zeros((npad, dim), dtype=self.dtype, device=self.device)
-        scales = torch.ones(npad, dtype=torch.float32) if quant else None
-        for c0 in range(0, n, _STAGE):
-            c1 = min(c0 + _STAGE, n)
+        rows = torch.zeros((hi - lo, dim), dtype=self.dtype, device=dev)
+        scales = torch.ones(hi - lo, dtype=torch.float32) if quant else None
+        for c0 in range(lo, min(hi, n), _STAGE):
+            c1 = min(c0 + _STAGE, hi, n)
             if quant:
                 if db.has_quant("int8"):
                     qv, s = db.read_rows_quant(c0, c1, "int8")
                 else:
                     qv, s = topk_ops.quantize_blocks(db.read_rows(c0, c1))
-                rows = _host(qv)
-                scales[c0:c1] = _host(s)
+                part = _host(qv)
+                scales[c0 - lo:c1 - lo] = _host(s)
             elif self.dtype == torch.bfloat16 and db.has_quant("bf16"):
                 bits = db.read_rows_quant(c0, c1, "bf16").view(np.int16)
-                rows = _host(bits).view(torch.bfloat16)
+                part = _host(bits).view(torch.bfloat16)
             else:
-                rows = _host(db.read_rows(c0, c1)).to(self.dtype)
-            demb[c0:c1] = rows.to(self.device)
-        if quant:
+                part = _host(db.read_rows(c0, c1)).to(self.dtype)
+            rows[c0 - lo:c1 - lo] = part.to(dev)
+        if quant and lo < n < hi and n % topk_ops.BLOCK:
             # the padding rows of the block straddling n share its scale, so
             # the scales stay uniform within every block
-            if n % topk_ops.BLOCK:
-                scales[n:npad] = scales[n - 1]
-            self._dscale = scales.to(self.device)
-        lengths = np.full(npad, 1e9, np.float32)
-        lengths[:n] = db.lengths()
-        self._dlen = torch.from_numpy(lengths).to(self.device)
-        self._n_valid = n
-        self._demb = demb           # last: the double-checked state
-        logger.info("DB resident on %s: %d rows %s (%.2f GB, %.2fs)", self.device,
-                    n, str(self.dtype).replace("torch.", ""),
-                    demb.numel() * demb.element_size() / 2 ** 30, time.time() - t0)
+            scales[n - lo:-(-n // topk_ops.BLOCK) * topk_ops.BLOCK - lo] = scales[n - lo - 1]
+        lengths = np.full(hi - lo, 1e9, np.float32)
+        if lo < n:
+            lengths[:min(hi, n) - lo] = db.lengths()[lo:min(hi, n)]
+        return {"rows": rows, "tlen": torch.from_numpy(lengths).to(dev),
+                "scales": scales.to(dev) if quant else None}
+
+    def _build_ivf(self, emb) -> dict:
+        t0 = time.perf_counter()
+        ivf = ivf_mod.build_ivf(emb, self.ivf_nlist, multiple_of=len(self.devices),
+                                device=self.device)
+        self.ivf_build_s = time.perf_counter() - t0
+        return ivf
 
     def _ivf_layout(self, emb) -> dict:
         """The IVF layout of this DB: the `.ivf{nlist}.npz` cache next to an
@@ -252,9 +349,7 @@ class SearchEngine:
                         "dup": bool(z["dup"]) if "dup" in z else False}
             logger.warning("IVF cache %s is stale (database changed since the "
                            "build); rebuilding", cache)
-        t0 = time.perf_counter()
-        ivf = ivf_mod.build_ivf(emb, self.ivf_nlist, device=self.device)
-        self.ivf_build_s = time.perf_counter() - t0
+        ivf = self._build_ivf(emb)
         if cache:
             tmp = f"{cache}.tmp{os.getpid()}"
             try:
@@ -268,21 +363,31 @@ class SearchEngine:
         return ivf
 
     def _load_ivf_resident(self):
-        """The DB on the device in its permuted IVF layout
+        """The DB on the devices in its permuted IVF layout
         (ivf.resident_layout: the storage dtype, permuted lengths, and with
-        ivf_rerank the f32 sidecar), _STAGE permuted rows at a time."""
+        ivf_rerank the f32 sidecar), _STAGE permuted rows at a time; with a
+        mesh, nlist/ndev whole clusters a device. A cached layout whose
+        nlist the devices do not divide (built for another mesh) is built
+        again, and not cached, as in JAX."""
         t0 = time.time()
         emb = self._normalised_embeddings()
         ivf = self._ivf_layout(emb)
-        lay = ivf_mod.resident_layout(emb, ivf, self.dtype, self.device,
-                                      lengths=self.db.lengths(), rerank=self.ivf_rerank,
-                                      slab=_STAGE)
+        nd = len(self.devices)
+        if ivf["nlist"] % nd:
+            logger.info("IVF layout of %d clusters does not shard over %d devices; "
+                        "rebuilding", ivf["nlist"], nd)
+            ivf = self._build_ivf(emb)
+        rows = len(ivf["perm"]) // nd
+        shards = [ivf_mod.resident_layout(emb, ivf, self.dtype, dev, lengths=self.db.lengths(),
+                                          rerank=self.ivf_rerank, slab=_STAGE,
+                                          rows=(me * rows, (me + 1) * rows))
+                  for me, dev in enumerate(self.devices)]
         self.ivf_nlist = int(ivf["centroids"].shape[0])   # the build may clamp
-        self._ivf = lay
-        self._demb = lay["db"]      # last: the double-checked state
+        self._shards = shards       # last: the double-checked state
         logger.info("IVF DB resident on %s: %d rows in %d clusters of %d (%.2f GB, %.2fs)",
-                    self.device, self.db.size, self.ivf_nlist, ivf["cluster_rows"],
-                    self._demb.numel() * self._demb.element_size() / 2 ** 30, time.time() - t0)
+                    self._where(), self.db.size, self.ivf_nlist, ivf["cluster_rows"],
+                    len(ivf["perm"]) * self.db.dim * _ITEMSIZE[self.dtype] / 2 ** 30,
+                    time.time() - t0)
 
     def _normalised_embeddings(self):
         """Unit-norm embeddings for index builds: the mmap layout is stored
@@ -328,10 +433,8 @@ class SearchEngine:
             vals, idxs = self._ivf_search(q, k_eff, qlen, float(mincov), use_len)
         else:
             self._load_resident()
-            query = topk_ops.query_operands(q, self.dtype, self.device)
-            vals, idxs = self._scan(query, self._demb, self._n_valid,
-                                    k_eff, self._dlen, qlen, float(mincov), use_len,
-                                    self._dscale if self.dtype == torch.int8 else None)
+            vals, idxs = self._sharded_scan(self._replicas(q, qlen), self._shards,
+                                            self._n_valid, k_eff, float(mincov), use_len)
         vals = vals.cpu().numpy().astype(np.float32)
         idxs = idxs.cpu().numpy()
         idxs = np.where(np.isfinite(vals), idxs, -1)
@@ -342,27 +445,28 @@ class SearchEngine:
             idxs = np.concatenate([idxs, pad_i], axis=1)
         return vals, idxs
 
-    def _scan(self, query, rows, n_valid: int, k: int, tlen, qlen, mincov: float,
-              use_len: bool, scales):
-        """Top-k of one resident DB or superblock: rows [Npad, 128] in the
-        storage dtype, tlen [Npad] (None where the length channel is off in
-        stream mode). Returns device tensors (vals [Q, k], idxs [Q, k])."""
-        qd, qs = query
-        if self.dtype == torch.float32:
-            return topk_ops.topk_scan(
-                qd, rows, n_valid, k, tlen=tlen if use_len else None,
-                qlen=qlen if use_len else None, mincov=mincov)
-        vals, idxs = fused_topk(qd, rows, n_valid, k, tlen=tlen, qlen=qlen,
-                                mincov=mincov, use_len=use_len, scales=scales)
-        if qs is not None:
-            # per-query dequantisation (positive, so -inf stays -inf)
-            vals = vals * qs[:, None]
-        return vals, idxs
+    def _replicas(self, q: np.ndarray, qlen) -> list[tuple]:
+        """The scan's query operands (ops.topk.query_operands: int8
+        quantised once) and qlen on every device of the engine:
+        [(qd, qs or None, qlen)] one a device, made once a search."""
+        qd, qs = topk_ops.query_operands(q, self.dtype, self.device)
+        return [(qd.to(d), None if qs is None else qs.to(d), qlen.to(d)) for d in self.devices]
+
+    def _sharded_scan(self, reps, shards, n_valid: int, k: int, mincov: float,
+                      use_len: bool):
+        """The top-k over the engine's row shards, one a device (reps:
+        _replicas): mesh_search with a mesh, else the one shard's
+        shard_topk as it is."""
+        if self.mesh is None:
+            return shard_topk(reps[0], shards[0], 0, n_valid, k, mincov, use_len)
+        return mesh_search(reps, shards, n_valid, k, mincov, use_len)
 
     def _ivf_search(self, q, k, qlen, mincov, use_len):
-        """Device-mode IVF (ivf.search_resident) on the resident layout."""
+        """Device-mode IVF (ivf.search_resident) on the resident layout, or
+        with a mesh on its shards (ivf.mesh_ivf_search)."""
         return ivf_mod.search_resident(
-            self._ivf, torch.from_numpy(q).to(self.device),
+            self._shards if self.mesh is not None else self._shards[0],
+            torch.from_numpy(q).to(self.device),
             topk_ops.query_operands(q, self.dtype, self.device), k, self.ivf_nprobe,
             qlen=qlen, mincov=mincov, use_len=use_len, rerank=self.ivf_rerank)
 
@@ -374,6 +478,12 @@ class SearchEngine:
             # superblocks start on scale blocks, as in device mode
             block = max(topk_ops.BLOCK, block // topk_ops.BLOCK * topk_ops.BLOCK)
         return block
+
+    def _padded(self, rows: int) -> int:
+        """rows rounded up to a multiple of 128 rows a device, so a staged
+        item splits into equal row slices of whole blocks."""
+        mult = len(self.devices) * topk_ops.BLOCK
+        return -(-rows // mult) * mult
 
     def _staging_buffers(self, rows: int, use_len: bool, device=None,
                          pin: bool = False, perm: bool = False) -> dict:
@@ -394,11 +504,11 @@ class SearchEngine:
 
     def _fill(self, buf: dict, off: int, block: int, lengths) -> tuple[int, int]:
         """Read superblock [off, off + block) into the host buffers `buf`,
-        padded with zero rows to a multiple of 128 (length 1e9, the tail
-        block's scale). Returns (rows read, padded rows)."""
+        padded with zero rows to a multiple of 128 rows a device (length
+        1e9, the tail block's scale). Returns (rows read, padded rows)."""
         db, n = self.db, self.db.size
         nb = min(block, n - off)
-        npad = -(-nb // topk_ops.BLOCK) * topk_ops.BLOCK
+        npad = self._padded(nb)
         rows = buf["rows"]
         if self.dtype == torch.int8:
             if db.has_quant("int8"):
@@ -426,39 +536,43 @@ class SearchEngine:
     def _staged_scans(self, items, rows_cap: int, use_len: bool, fill, scan,
                       perm: bool = False) -> dict:
         """For each item in order: fill(host buffers, item) -> (npad, meta)
-        on the staging pool, then scan(device buffers cut to npad rows,
-        meta) on the consumer (module docstring: the pinned ring, the side
-        stream, three device slots, backpressure two items back). Returns
-        the readings: items, the pool's staging seconds, the consumer's
-        wait, and a function that gives, once the caller has synchronised
-        (on the card), the copies' and the scans' spans."""
-        dev = self.device
-        cuda = dev.type == "cuda"
+        on the staging pool, then scan(shards, meta) on the consumer, with
+        shards the item's npad rows cut into one equal slice a device of the
+        engine, each on its device (module docstring: the pinned ring, a
+        side stream and three slots a device, backpressure two items back).
+        rows_cap is a multiple of 128 rows a device. Returns the readings:
+        items, the pool's staging seconds, the consumer's wait, and a
+        function that gives, once the caller has synchronised (on the card),
+        the copies' and the scans' spans, summed over the devices."""
+        devs = self.devices
+        nd = len(devs)
+        cuda = devs[0].type == "cuda"
         threads = stage_threads()
         stage_s, lock = [0.0], threading.Lock()
 
         if cuda:
             # ring of pinned buffers: item i fills slot i % ring. Item i is
             # submitted to the pool only after the consumer has issued the
-            # copy of item i - threads - 1 (_ordered_prefetch's window), so
-            # with ring = threads + 2 the slot's last copy has its event
-            # recorded by then, and the filler waits on it before writing
+            # copies of item i - threads - 1 (_ordered_prefetch's window), so
+            # with ring = threads + 2 the slot's last copies have their
+            # events recorded by then, and the filler waits on them before
+            # writing
             ring = threads + 2
             host = [self._staging_buffers(rows_cap, use_len, pin=True, perm=perm)
                     for _ in range(ring)]
-            copied = [None] * ring
-            slots = [self._staging_buffers(rows_cap, use_len, dev, perm=perm)
-                     for _ in range(DEVICE_SLOTS)]
+            copied = [[] for _ in range(ring)]
+            slots = [[self._staging_buffers(rows_cap // nd, use_len, dev, perm=perm)
+                      for _ in range(DEVICE_SLOTS)] for dev in devs]
             scanned = [None] * DEVICE_SLOTS
-            side = torch.cuda.Stream(dev)
-            main = torch.cuda.current_stream(dev)
+            side = [torch.cuda.Stream(dev) for dev in devs]
+            main = [torch.cuda.current_stream(dev) for dev in devs]
 
         def prepare(entry):
             i, item = entry
             t = time.perf_counter()
             if cuda:
-                if copied[i % ring] is not None:
-                    copied[i % ring].synchronize()
+                for ev in copied[i % ring]:
+                    ev.synchronize()
                 buf = host[i % ring]
             else:
                 buf = self._staging_buffers(rows_cap, use_len, perm=perm)
@@ -471,38 +585,47 @@ class SearchEngine:
         wait_s, t_wait = 0.0, time.perf_counter()
         for i, npad, meta, buf in _ordered_prefetch(enumerate(items), prepare, threads):
             wait_s += time.perf_counter() - t_wait
+            r = npad // nd
             if cuda:
-                d = slots[i % DEVICE_SLOTS]
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                with torch.cuda.stream(side):
-                    if scanned[i % DEVICE_SLOTS] is not None:
-                        side.wait_event(scanned[i % DEVICE_SLOTS])
-                    ev[0].record(side)
-                    for key, t in buf.items():
-                        d[key][:npad].copy_(t[:npad], non_blocking=True)
-                    ev[1].record(side)
-                copied[i % ring] = ev[1]
-                main.wait_event(ev[1])
-                ev[2].record(main)
+                s = i % DEVICE_SLOTS
+                evs, shards = [], []
+                for j in range(nd):
+                    d = slots[j][s]
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                    with torch.cuda.stream(side[j]):
+                        if scanned[s] is not None:
+                            side[j].wait_event(scanned[s][j])
+                        ev[0].record(side[j])
+                        for key, t in buf.items():
+                            d[key][:r].copy_(t[j * r:(j + 1) * r], non_blocking=True)
+                        ev[1].record(side[j])
+                    main[j].wait_event(ev[1])
+                    ev[2].record(main[j])
+                    evs.append(ev)
+                    shards.append({key: t[:r] for key, t in d.items()})
+                copied[i % ring] = [ev[1] for ev in evs]
             else:
-                d = buf
-            scan({key: t[:npad] for key, t in d.items()}, meta)
+                shards = [{key: t[j * r:(j + 1) * r] for key, t in buf.items()}
+                          for j in range(nd)]
+            scan(shards, meta)
             n_items += 1
             if cuda:
-                ev[3].record(main)
-                scanned[i % DEVICE_SLOTS] = ev[3]
-                timing.append(ev)
+                for j, ev in enumerate(evs):
+                    ev[3].record(main[j])
+                scanned[s] = [ev[3] for ev in evs]
+                timing.append(evs)
                 if len(timing) >= 3:
                     # backpressure, as in the JAX engine: the host waits on
-                    # the scan two items back
-                    timing[-3][3].synchronize()
+                    # the scans two items back
+                    for ev in timing[-3]:
+                        ev[3].synchronize()
             t_wait = time.perf_counter()
 
         def spans():
-            return {"copy_s": sum(e[0].elapsed_time(e[1]) for e in timing) / 1e3 if cuda
-                    else None,
-                    "scan_s": sum(e[2].elapsed_time(e[3]) for e in timing) / 1e3 if cuda
-                    else None}
+            if not cuda:
+                return {"copy_s": None, "scan_s": None}
+            return {"copy_s": sum(e[0].elapsed_time(e[1]) for evs in timing for e in evs) / 1e3,
+                    "scan_s": sum(e[2].elapsed_time(e[3]) for evs in timing for e in evs) / 1e3}
 
         return {"items": n_items, "stage_thread_s": stage_s[0],
                 "consumer_wait_s": wait_s}, spans
@@ -523,23 +646,21 @@ class SearchEngine:
         t0 = time.perf_counter()
         n, block = self.db.size, self._superblock_rows()
         lengths = self.db.lengths().astype(np.float32) if use_len else None
-        # int8: quantised once
-        query = topk_ops.query_operands(q, self.dtype, self.device)
+        reps = self._replicas(q, qlen)
         parts_v, parts_i = [], []
 
         def fill(buf, off):
             nb, npad = self._fill(buf, off, block, lengths)
             return npad, (off, nb)
 
-        def scan(d, meta):
+        def scan(shards, meta):
             off, nb = meta
-            vals, idxs = self._scan(query, d["rows"], nb, min(k, nb), d.get("tlen"), qlen,
-                                    mincov, use_len, d.get("scales"))
+            vals, idxs = self._sharded_scan(reps, shards, nb, min(k, nb), mincov, use_len)
             parts_v.append(vals)
             parts_i.append(torch.where(idxs >= 0, idxs + off, idxs))
 
-        rows_cap = -(-block // topk_ops.BLOCK) * topk_ops.BLOCK
-        st, spans = self._staged_scans(range(0, n, block), rows_cap, use_len, fill, scan)
+        st, spans = self._staged_scans(range(0, n, block), self._padded(block), use_len,
+                                       fill, scan)
         vals, idxs = self._merge(parts_v, parts_i, min(k, n))
         vals, idxs = vals.cpu(), idxs.cpu()         # the loop's one sync
         wall = time.perf_counter() - t0
@@ -606,10 +727,11 @@ class SearchEngine:
         """Sublinear search over a DB over the device budget: stage only
         the union of the batch's probed clusters from the disk sidecars, in
         coalesced runs of whole clusters, and run the flat scan on each
-        group of staged clusters (exact within the probed set). Slot
-        padding rows carry +inf lengths; mincov is folded into the finite
-        lengths only (inf * 0 is NaN) and the scan masks tl <= qcap at
-        mincov 1.0. With duplicates in the layout, each group's top-k is
+        group of staged clusters (exact within the probed set; with a mesh,
+        each group row-sharded over the devices). Slot and shard padding
+        rows carry +inf lengths; mincov is folded into the finite lengths
+        only (inf * 0 is NaN) and the scan masks tl <= qcap at mincov 1.0.
+        With duplicates in the layout, each group's top-k is
         k * (DUP_PREF + 1) deep and the merge dedups by original id
         (ivf._dedup_topk, on the device)."""
         self._load_stream_ivf()
@@ -622,8 +744,8 @@ class SearchEngine:
         qf = torch.from_numpy(q).to(dev)
         probe = torch.topk(qf @ siv["dcent"].T, min(self.ivf_nprobe, nlist), dim=1).indices
         union = torch.unique(probe).cpu().numpy()     # sorted cluster ids (a sync)
-        query = topk_ops.query_operands(q, self.dtype, self.device)
         qcap = qlen if use_len else torch.full((q.shape[0],), 3e38, device=dev)
+        reps = self._replicas(q, qcap)
         fold = np.float32(mincov if use_len else 0.0)
         per_group = max(1, self.stream_block // c_rows)
         dup = bool(siv.get("dup"))
@@ -645,17 +767,23 @@ class SearchEngine:
                 at += m
             fin = np.isfinite(tl[:at])
             tl[:at][fin] *= fold
-            return at, at
+            npad = self._padded(at)         # the mesh's shard padding: masked rows
+            rows_np[at:npad] = 0
+            tl[at:npad] = np.inf
+            pm[at:npad] = -1
+            if siv["scales"] is not None:
+                buf["scales"].numpy()[at:npad] = 1.0
+            return npad, at
 
-        def scan(d, nb):
+        def scan(shards, nb):
             kk = min(k * (ivf_mod.DUP_PREF + 1) if dup else k, nb)
-            vals, idxs = self._scan(query, d["rows"], nb, kk, d["tlen"], qcap, 1.0, True,
-                                    d.get("scales"))
+            vals, idxs = self._sharded_scan(reps, shards, nb, kk, 1.0, True)
             parts_v.append(vals)
-            parts_i.append(torch.where(idxs >= 0, d["perm"][idxs.clamp(min=0)], -1))
+            parts_i.append(idxs)
 
-        st, spans = self._staged_scans(range(0, len(union), per_group), per_group * c_rows,
-                                       True, fill, scan, perm=True)
+        st, spans = self._staged_scans(range(0, len(union), per_group),
+                                       self._padded(per_group * c_rows), True, fill, scan,
+                                       perm=True)
         staged = len(union) * c_rows
         if dup:
             # copies of a multi-assigned row can win in several groups with

@@ -24,6 +24,10 @@ byte per query batch; the IVF touches only `nprobe/nlist` of it:
   clusters. The files are byte for byte the JAX package's: a sidecar set
   or an `.ivf{nlist}.npz` cache written by either package opens in the
   other. bf16 sidecars are read and written as 16-bit words.
+- **Mesh** (devices): `mesh_ivf_search` shards the permuted layout by
+  whole clusters over a list of devices (`resident_layout(rows=...)`);
+  each device probes the same clusters, reads the ones it holds, and the
+  partial top-k are merged on the first device.
 
 Exactness: results are the exact top-k of the probed clusters in the
 storage dtype (with rerank, of the rescored blocks in f32); nprobe = nlist
@@ -41,7 +45,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.gather import gather_block_scores_by_block
-from ..ops.topk import BLOCK, quantize_blocks
+from ..ops.topk import BLOCK, merge_partials, quantize_blocks
 
 logger = logging.getLogger(__name__)
 
@@ -297,14 +301,24 @@ def permute_db(emb: np.ndarray, ivf: dict, dtype=np.float32) -> np.ndarray:
 
 # -- query --------------------------------------------------------------------
 
-def _probe_blocks(q: torch.Tensor, centroids: torch.Tensor, nprobe: int, bpc: int):
+def _probe_blocks(q: torch.Tensor, centroids: torch.Tensor, nprobe: int, bpc: int,
+                  nlist_local: int | None = None, me: int | None = None):
     """Top-nprobe clusters per query -> [Q, nprobe*bpc] int32 block ids of
-    the permuted layout (bpc blocks a cluster). The centroids are scored
-    in f32 from q as given (the engine passes the storage-dtype query, as
-    the JAX engine does)."""
+    the permuted layout (bpc blocks a cluster), -1 = skip. The centroids
+    are scored in f32 from q as given (the engine passes the storage-dtype
+    query, as the JAX engine does).
+
+    With nlist_local/me set, cluster ids are remapped to mesh shard me's
+    local cluster range and the probes of other shards' clusters become -1
+    (phase C's padding): every shard computes the same global probe set and
+    reads only the probed clusters it holds."""
     cs = q.to(torch.float32) @ centroids.T                      # [Q, nlist]
     probe = torch.topk(cs, nprobe, dim=1).indices               # [Q, nprobe]
-    bidx = probe[:, :, None] * bpc + torch.arange(bpc, device=q.device)
+    if nlist_local is not None:
+        lp = probe - me * nlist_local
+        probe = torch.where((lp >= 0) & (lp < nlist_local), lp, -1)
+    bidx = torch.where(probe[:, :, None] >= 0,
+                       probe[:, :, None] * bpc + torch.arange(bpc, device=q.device), -1)
     return bidx.reshape(q.shape[0], nprobe * bpc).to(torch.int32).contiguous()
 
 
@@ -430,30 +444,33 @@ def ivf_search(q, db_perm, centroids, perm, k: int, nprobe: int, tlen=None,
 
 
 def resident_layout(emb, ivf: dict, dtype: torch.dtype, device, lengths=None,
-                    rerank: bool = False, slab: int = 1 << 18) -> dict:
+                    rerank: bool = False, slab: int = 1 << 18, rows=None) -> dict:
     """The permuted layout on `device` as device-mode IVF search reads it:
     "db" [Npad, D] in the storage dtype (int8 with block scales, "scales",
     over the permuted layout), "tlen" the permuted target lengths (padding
     rows 1e9; None without `lengths`), "hi" the f32 sidecar (rerank only),
     and the centroids, perm and dup flag. Slabs of `slab` permuted rows (a
     multiple of 128, so int8 blocks stay whole) are gathered from the
-    (memmap) embeddings one at a time."""
-    perm = ivf["perm"]
+    (memmap) embeddings one at a time. rows=(lo, hi): only the permuted
+    rows [lo, hi) (a mesh shard: lo and hi on cluster boundaries), with
+    the whole centroids."""
+    lo0, hi0 = rows or (0, len(ivf["perm"]))
+    perm = ivf["perm"][lo0:hi0]
     npad, dim = len(perm), emb.shape[1]
     quant = dtype == torch.int8
     db = torch.zeros((npad, dim), dtype=dtype, device=device)
     scales = torch.ones(npad, dtype=torch.float32, device=device) if quant else None
     hi = torch.zeros((npad, dim), dtype=torch.float32, device=device) if rerank else None
     for lo in range(0, npad, slab):
-        rows = permute_rows(emb, perm[lo:lo + slab], np.float32)
+        part = permute_rows(emb, perm[lo:lo + slab], np.float32)
         if quant:
-            qv, s = quantize_blocks(rows)
+            qv, s = quantize_blocks(part)
             db[lo:lo + slab] = torch.from_numpy(qv).to(device)
             scales[lo:lo + slab] = torch.from_numpy(s).to(device)
         else:
-            db[lo:lo + slab] = torch.from_numpy(rows).to(device).to(dtype)
+            db[lo:lo + slab] = torch.from_numpy(part).to(device).to(dtype)
         if hi is not None:
-            hi[lo:lo + slab] = torch.from_numpy(rows).to(device)
+            hi[lo:lo + slab] = torch.from_numpy(part).to(device)
     tlen = None
     if lengths is not None:
         lp = np.full(npad, 1e9, np.float32)
@@ -466,22 +483,80 @@ def resident_layout(emb, ivf: dict, dtype: torch.dtype, device, lengths=None,
             "dup": bool(ivf["dup"])}
 
 
-def search_resident(lay: dict, qf, query, k: int, nprobe: int, qlen=None,
+def mesh_ivf_search(shards, q, k: int, nprobe: int, qlen=None, mincov: float = 0.0,
+                    use_len: bool = False, q8=None, rerank: bool = False, q_hi=None):
+    """The IVF sharded over a mesh: the counterpart of the JAX package's
+    `build_mesh_ivf_search`. shards: resident_layouts of equal row ranges
+    of one layout, in order, one a device (rows=: nlist/ndev whole
+    clusters each, the whole centroids on every device). q, q8, q_hi and
+    qlen as for ivf_search, on the first shard's device; each shard gets
+    its own copy. Every shard computes the global probe set from the
+    centroids, gathers only the probed clusters it holds (_probe_blocks'
+    remap) and takes its exact top-k of them (rerank: from its own f32
+    sidecar, before the merge); the partials are copied to the first
+    device and merged (merge_partials; a layout with duplicates dedups
+    across shards, since a row and its copy may lie on two devices).
+    Equal to ivf_search on the whole layout with the same centroids and
+    perm. Returns (scores [Q, k], ORIGINAL ids [Q, k]) on the first
+    shard's device."""
+    nd = len(shards)
+    nlist = shards[0]["centroids"].shape[0]
+    if nlist % nd:
+        raise ValueError(f"{nlist} clusters do not shard over {nd} devices")
+    nlist_local = nlist // nd
+    dev0 = shards[0]["db"].device
+    dedup = shards[0]["dup"]
+    if rerank and q_hi is None:
+        q_hi = q.to(torch.float32)
+    parts_v, parts_i = [], []
+    for me, lay in enumerate(shards):
+        dev = lay["db"].device
+
+        def on(t):
+            return None if t is None else t.to(dev, non_blocking=True)
+
+        bpc = lay["db"].shape[0] // nlist_local // BLOCK
+        qd = on(q)
+        bidx = _probe_blocks(qd, lay["centroids"], nprobe, bpc, nlist_local, me)
+        v, idx = _probe_and_select(on(q8) if q8 is not None else qd, lay["db"], lay["perm"],
+                                   bidx, k, lay["tlen"], on(qlen), mincov, use_len,
+                                   scales=lay["scales"], dedup=dedup,
+                                   rerank_hi=lay["hi"] if rerank else None,
+                                   q_hi=on(q_hi.to(torch.float32).contiguous())
+                                   if rerank else None)
+        parts_v.append(v)
+        parts_i.append(idx)
+    pv = [v.to(dev0, non_blocking=True) for v in parts_v]
+    pi = [i.to(dev0, non_blocking=True) for i in parts_i]
+    if dedup:
+        return _dedup_topk(torch.cat(pv, dim=1), torch.cat(pi, dim=1), k)
+    return merge_partials(torch.stack(pv), torch.stack(pi), k)
+
+
+def search_resident(lay, qf, query, k: int, nprobe: int, qlen=None,
                     mincov: float = 0.0, use_len: bool = False, rerank: bool = False):
-    """ivf_search on a resident_layout: qf [Q, D] the f32 unit queries,
-    query = ops.topk.query_operands(...) (the scan's query, int8 scales).
-    The centroid probe scores the scan's query (bf16: rounded, as the JAX
-    engine passes it; int8: the f32 query, as the JAX engine keeps it).
-    int8 values are rescaled per query, except with rerank (the layout's
-    "hi" sidecar), whose values are exact f32 already."""
+    """ivf_search on a resident_layout, or mesh_ivf_search on a list of
+    shard layouts: qf [Q, D] the f32 unit queries, query =
+    ops.topk.query_operands(...) (the scan's query, int8 scales), both on
+    the (first) layout's device. The centroid probe scores the scan's
+    query (bf16: rounded, as the JAX engine passes it to ivf_search; int8:
+    the f32 query, as the JAX engine keeps it); with a mesh too, so a mesh
+    returns what one device does. int8 values are rescaled per query,
+    except with rerank (the layout's "hi" sidecar), whose values are exact
+    f32 already."""
     qd, qs = query
-    quant = lay["scales"] is not None
-    vals, idxs = ivf_search(
-        qf if quant else qd, lay["db"], lay["centroids"], lay["perm"], k,
-        min(nprobe, lay["centroids"].shape[0]), tlen=lay["tlen"], qlen=qlen,
-        mincov=mincov, use_len=use_len, scales=lay["scales"], q8=qd if quant else None,
-        dedup=lay["dup"], rerank_hi=lay["hi"] if rerank else None,
-        q_hi=qf if rerank else None)
+    first = lay[0] if isinstance(lay, list) else lay
+    quant = first["scales"] is not None
+    nprobe = min(nprobe, first["centroids"].shape[0])
+    kw = dict(qlen=qlen, mincov=mincov, use_len=use_len, q8=qd if quant else None,
+              q_hi=qf if rerank else None)
+    if isinstance(lay, list):
+        vals, idxs = mesh_ivf_search(lay, qf if quant else qd, k, nprobe, rerank=rerank, **kw)
+    else:
+        vals, idxs = ivf_search(qf if quant else qd, lay["db"], lay["centroids"], lay["perm"],
+                                k, nprobe, tlen=lay["tlen"], scales=lay["scales"],
+                                dedup=lay["dup"], rerank_hi=lay["hi"] if rerank else None,
+                                **kw)
     if quant and not rerank:
         vals = vals * qs[:, None]
     return vals, idxs

@@ -18,7 +18,7 @@ Endpoints (JSON in/out):
                           -> {"ndom": n, "domains": [...], "hits_per_domain": [...]}
 
 Run: python -m merizo_search_tpu_torch.cli serve <db_name> [--port 8086]
-[--precision bf16] [-d cuda|cpu] ...
+[--precision bf16] [-d cuda|cpu] [--mesh N] ...
 
 Concurrency: requests are handled on a thread pool, and concurrent /search
 requests with the same options are micro-batched into one scan (the scan is
@@ -125,7 +125,9 @@ def _warmup_backbone_pdb(coords: np.ndarray) -> str:
 
 
 class SearchService:
-    """Resident models + database + search pipeline on one device."""
+    """Resident models + database + search pipeline on one device; with a
+    `mesh` (device.make_mesh) the database is sharded over its devices, and
+    the models stay on `device`, as in the JAX service."""
 
     MAX_K = 1000
     MAX_QUERY_RES = 20000
@@ -139,7 +141,7 @@ class SearchService:
                  tmalign_backend: str = "auto", search_index: str = "flat",
                  nprobe: int = 32, nlist: int = 0, ivf_rerank: bool = False,
                  max_batch: int = 64, batch_window_ms: float = 4.0,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
         from .db.codecs import FlatDB
         from .device import resolve_device
         from .models.merizo.network import load_merizo_params
@@ -152,7 +154,7 @@ class SearchService:
         self.db = FlatDB.open(db_name)
         self.engine = SearchEngine(self.db, dtype=precision, device=self.device,
                                    index=search_index, ivf_nlist=nlist,
-                                   ivf_nprobe=nprobe, ivf_rerank=ivf_rerank)
+                                   ivf_nprobe=nprobe, ivf_rerank=ivf_rerank, mesh=mesh)
         self.fc_model = load_foldclass_params(weights, self.device)
         self.mz_model = load_merizo_params(merizo_weights, self.device)
         self.tmalign_backend = tmalign_backend
@@ -166,7 +168,7 @@ class SearchService:
             self.engine._load_resident()   # pay DB residency once, at boot
         self._warmup()
         logger.info("service ready: %d entries (%s mode) on %s", self.db.size,
-                    self.engine.mode, self.device)
+                    self.engine.mode, ", ".join(map(str, self.engine.devices)))
 
     def _warmup(self):
         """Run each path once at boot, as the JAX server does: a skip-TM-align

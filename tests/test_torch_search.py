@@ -155,14 +155,31 @@ def test_cli_search_writes_the_same_tsv(setup):
 
 @pytest.mark.parametrize("flag", [["search", "--mesh", "2"], ["easy-search", "--mesh", "2"]])
 def test_cli_unported_modes_raise(setup, flag):
-    """The mesh mode is the one search mode still unported: both verbs reject
-    it before any work (--tmalign_backend tpu runs since the device aligner
-    was ported; tests/test_torch_server.py drives it)."""
+    """The mesh mode on both search verbs: `--mesh 2 -d cpu` (the DB on two
+    CPU shards) writes the TSV the verb writes without --mesh. easy-search
+    segments a helical backbone first (the port's seeded Merizo init);
+    mincos 0 keeps every hit, so each domain's k rows are compared."""
     from merizo_search_tpu_torch import cli
+    from merizo_search_tpu_torch.tools.synthetic import helical_backbone, write_backbone_pdb
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([flag[0], setup["pdbs"][0], setup["prefix"] + "_pt",
-                  str(setup["tmp"] / "x"), "-d", "cpu", *flag[1:]])
+    verb = flag[0]
+    tmp = setup["tmp"] / f"mesh_{verb}"
+    tmp.mkdir()
+    if verb == "search":
+        inputs, seg = setup["pdbs"], []
+    else:
+        rng = np.random.default_rng(8)
+        inputs, seg = [str(tmp / "chain.pdb")], ["--merizo_output", str(tmp)]
+        write_backbone_pdb(inputs[0], helical_backbone(rng, 180), rng)
+    weights = str(tmp / "foldclass.pt")
+    torch.save(setup["model"].state_dict(), weights)
+    for tag, extra in (("one", []), ("mesh", flag[1:])):
+        cli.main([verb, *inputs, setup["prefix"] + "_pt", str(tmp / tag), "-d", "cpu",
+                  "-k", "5", "--mincos", "0", "--skip_tmalign", "--weights", weights,
+                  *seg, *extra])
+    rows = _tsv_rows(str(tmp / "mesh_search.tsv"))
+    assert len(rows) >= 5
+    assert rows == _tsv_rows(str(tmp / "one_search.tsv"))
 
 
 @pytest.mark.parametrize("kind,precision", [("int8", "int8"), ("bf16", "bf16")])

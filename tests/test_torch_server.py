@@ -331,7 +331,7 @@ def test_serve_verb_flags_and_defaults(monkeypatch):
     assert seen.pop() == ("some_db", dict(
         host="127.0.0.1", port=8086, precision="bf16", weights=None, merizo_weights=None,
         tmalign_backend="auto", search_index="flat", nprobe=32, nlist=0, ivf_rerank=False,
-        max_batch=64, batch_window_ms=4.0, device="cuda"))
+        max_batch=64, batch_window_ms=4.0, device="cuda", mesh=None))
     tcli.main(["serve", "db2", "-d", "cpu", "--port", "0", "--precision", "int8",
                "--tmalign_backend", "tpu", "--search_index", "ivf", "--nprobe", "8",
                "--ivf_rerank", "--max_batch", "1", "--batch_window_ms", "2.5"])
@@ -339,8 +339,9 @@ def test_serve_verb_flags_and_defaults(monkeypatch):
     assert (kw["device"], kw["port"], kw["precision"], kw["tmalign_backend"],
             kw["search_index"], kw["nprobe"], kw["ivf_rerank"], kw["max_batch"],
             kw["batch_window_ms"]) == ("cpu", 0, "int8", "tpu", "ivf", 8, True, 1, 2.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["serve", "db3", "--mesh", "2"])
+    tcli.main(["serve", "db3", "--mesh", "2", "-d", "cpu"])   # the DB on two CPU shards
+    db, kw = seen.pop()
+    assert (db, kw["device"], kw["mesh"]) == ("db3", "cpu", (torch.device("cpu"),) * 2)
     assert seen == []
 
 
