@@ -60,8 +60,14 @@ server) on the card and checks them:
             on the chains of <= 300 residues, domain ids equal and
             confidences within 1e-3 of the port's CPU run. Prints
             residues/s, the seconds of each chain, the peak device memory
-            at 2,900 residues, and the card's idle share in one forward at
-            700 under torch.profiler.
+            at 2,900 residues (above what earlier phases hold), and the
+            card's idle share in one forward at
+            700 under torch.profiler. Then the 16 chains of 100-400
+            through `segment_structures` batched by length bucket and one
+            chain a forward, in turns: domain ids equal, confidences
+            within 2e-4, residues/s of each; the card's idle share in one
+            batched forward and in one chain of it; the peak memory of a
+            full pair-budget batch at bucket 1,536 (7 chains).
 11. stream  the stream mode (superblocks staged through pinned buffers and
             a side stream): an mmap DB of 2^24 seeded unit rows with int8
             and bf16 sidecars (write_quantized_sidecar), Q = 32, k = 100,
@@ -1031,6 +1037,14 @@ def createdb_phase(dev, tmp):
     return out, launch_counts()
 
 
+def held_before_peak():
+    """Reset the device's peak-memory counter and return the bytes allocated
+    now (earlier phases' DBs), to subtract from the next peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 SEGMENT_LENGTHS = (80, 300, 700, 1500)
 SEGMENT_BIG = 2900
 SEGMENT_PROFILED = 700
@@ -1060,12 +1074,13 @@ def segment_phase(dev, tmp):
     out, rows = {"cli_s": {}}, []
     big = f"len{SEGMENT_BIG}"
     for label, names in (("chains", [k for k in lengths if k != big]), (big, [big])):
-        torch.cuda.reset_peak_memory_stats()
+        base = held_before_peak()
         t = time.perf_counter()
         cli.main(["segment", *(paths[k] for k in names), os.path.join(dst, label), *flags])
         torch.cuda.synchronize()
         out["cli_s"][label] = time.perf_counter() - t
-        out.setdefault("peak_mem_gib", {})[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out.setdefault("peak_mem_gib", {})[label] = (torch.cuda.max_memory_allocated()
+                                                     - base) / 2 ** 30
         rows += read_tsv(os.path.join(dst, label + "_segment.tsv"))
     got = {r["filename"]: r for r in rows}
     check(sorted(got) == sorted(lengths), f"TSV rows for {sorted(got)}")
@@ -1087,6 +1102,11 @@ def segment_phase(dev, tmp):
                               "top_kernels_s": f_top}
     del x, f
 
+    batch = [k for k in lengths if k.startswith("batch")]
+    out["batched"] = segment_batched(model, [paths[k] for k in batch],
+                                     [lengths[k] for k in batch], src, rng)
+
+    t = time.perf_counter()
     small = [paths[k] for k, n in lengths.items() if n <= 300]
     res = {d: segment_structures(model if d == "cuda" else load_merizo_params(None, d), small,
                                  ["A"] * len(small), iterate=True) for d in ("cuda", "cpu")}
@@ -1096,8 +1116,83 @@ def segment_phase(dev, tmp):
               f"{path}: card and CPU domain ids differ")
         err = max(err, float(np.abs(g["conf_res"] - c["conf_res"]).max()))
     check(err <= 1e-3, f"card and CPU confidences differ by {err}")
-    out.update(compared_chains=len(small), conf_max_abs_err=err)
+    out.update(compared_chains=len(small), conf_max_abs_err=err,
+               cpu_compare_s=time.perf_counter() - t)
     return out
+
+def segment_batched(model, paths, nres, src, rng):
+    """The segmenter's batched forward against one chain a forward, on the
+    16 chains of 100-400 residues: each way twice, in turns (one a forward,
+    batched, batched, one a forward), iterate off; domain ids and ndom
+    equal, confidences within 2e-4. residues/s of each run; one batched
+    forward (the bucket with the most chains, lengths from the host) and one
+    chain of it alone under torch.profiler; the peak memory and seconds of
+    one full pair-budget batch at bucket 1,536 (7 chains of 1,400-1,536
+    residues)."""
+    from merizo_search_tpu_torch.models.merizo.features import generate_features
+    from merizo_search_tpu_torch.segment import pipeline as seg
+    from merizo_search_tpu_torch.tools.synthetic import helical_backbone, write_backbone_pdb
+
+    t_part = time.perf_counter()
+    cap, res, rate = seg.MAX_BATCH, {}, {"one_a_forward": [], "batched": []}
+    try:
+        for label in ("one_a_forward", "batched", "batched", "one_a_forward"):
+            seg.MAX_BATCH = 1 if label == "one_a_forward" else cap
+            t = time.perf_counter()
+            res[label] = seg.segment_structures(model, paths, ["A"] * len(paths))
+            rate[label].append(sum(nres) / (time.perf_counter() - t))
+    finally:
+        seg.MAX_BATCH = cap
+    err = 0.0
+    for path, b, o in zip(paths, res["batched"], res["one_a_forward"]):
+        check(np.array_equal(b["domain_ids"], o["domain_ids"]) and b["ndom"] == o["ndom"],
+              f"{path}: batched and one-a-forward domain ids differ")
+        err = max(err, float(np.abs(b["conf_res"] - o["conf_res"]).max()))
+    check(err <= 2e-4, f"batched and one-a-forward confidences differ by {err}")
+    buckets = {}
+    for path, n in zip(paths, nres):
+        buckets.setdefault(seg.bucketing.bucket_for(n), []).append(path)
+    out = {"residues": sum(nres), "residues_per_s": rate, "conf_max_abs_err": err,
+           "batches": {b: -(-len(v) // seg.batch_size(b)) for b, v in sorted(buckets.items())},
+           "part_s": {"compare": time.perf_counter() - t_part}}
+    t_part = time.perf_counter()
+
+    group = max(buckets.values(), key=len)
+    feats = [generate_features(p) for p in group]
+    feats.sort(key=lambda f: -f["nres"])
+    for label, fs in (("batched", feats), ("one_chain", feats[:1])):
+        x = [torch.from_numpy(a).to(model.linear_s_in.weight.device)
+             for a in seg._padded_features(fs, fs[0]["nres"])]
+        lens = torch.tensor([f["nres"] for f in fs])
+        m = None if int(lens.min()) == fs[0]["nres"] else x[5]
+        wall, busy, top, *_ = device_busy(
+            lambda: model.forward_features(*x[:5], m, None if m is None else lens), cpu=False)
+        out.setdefault("forward_profile", {})[label] = {
+            "chains": len(fs), "nres": [f["nres"] for f in fs], "wall_s": wall,
+            "device_busy_s": busy, "idle_share": None if busy is None else 1 - busy / wall,
+            "top_kernels_s": top}
+    del x
+    out["part_s"]["profiles"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    big = []
+    for i, n in enumerate(rng.integers(1400, 1537, seg.batch_size(1536))):
+        big.append(os.path.join(src, f"full{i}.pdb"))
+        write_backbone_pdb(big[-1], helical_backbone(rng, int(n)), rng)
+    feats = [generate_features(p) for p in big]
+    base = held_before_peak()
+    t = time.perf_counter()
+    got = seg._forward_batch(model, feats)
+    dt = time.perf_counter() - t
+    check(all(len(ids) == f["nres"] and np.isfinite(c).all() for (ids, c), f in zip(got, feats)),
+          "the 1,536 batch gave ids or confidences of the wrong length, or non-finite ones")
+    out["full_batch_1536"] = {"chains": len(feats), "nres": [f["nres"] for f in feats],
+                              "seconds": dt, "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                                              - base) / 2 ** 30,
+                              "residues_per_s": sum(f["nres"] for f in feats) / dt}
+    out["part_s"]["full_batch"] = time.perf_counter() - t_part
+    return out
+
 
 STREAM_BLOCK = 262_144     # the CLI's --search_batchsize default: 64 superblocks at N_BIG
 STREAM_Q, STREAM_K = 32, 100
@@ -2356,6 +2451,17 @@ def main():
                 f"; card idle in one forward at {SEGMENT_PROFILED}: " + (
                     "not measured" if seg["forward_profile"]["idle_share"] is None
                     else f"{seg['forward_profile']['idle_share']:.3f}"))
+            bt = seg["batched"]
+            fp, full, rps = bt["forward_profile"], bt["full_batch_1536"], bt["residues_per_s"]
+            ph.notes.append(
+                "16 chains: batched " + " / ".join(f"{r:.1f}" for r in rps["batched"])
+                + ", one a forward " + " / ".join(f"{r:.1f}" for r in rps["one_a_forward"])
+                + " residues/s; card idle in a batched forward of "
+                + f"{fp['batched']['chains']}: " + ", one chain of it: ".join(
+                    "not measured" if p["idle_share"] is None else f"{p['idle_share']:.3f}"
+                    for p in (fp["batched"], fp["one_chain"]))
+                + f"; {full['chains']} chains at 1536: {full['seconds']:.2f} s, "
+                f"peak {full['peak_mem_gib']:.2f} GiB")
 
         with Phase("stream") as ph:
             stream, stream_counts = stream_phase(dev, tmp, e2e_db)

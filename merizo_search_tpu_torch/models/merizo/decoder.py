@@ -96,10 +96,11 @@ class MaskTransformer(nn.Module):
         self.conf_gru = BiGRU(N_CLS, d)
         self.conf_out = nn.Linear(d, 1)
 
-    def forward(self, s, bias, mask=None):
+    def forward(self, s, bias, mask=None, lengths=None):
         """s [B,N,D] encoder output; bias [B,H,N,N] ALiBi (zero-padded over
         the class tokens here); mask [B,N] residue validity or None (all
-        valid). Returns (domain_masks [B,N,N_CLS], bg_logits [B,N,2])."""
+        valid), and lengths [B] its row sums on the host for the background
+        GRU. Returns (domain_masks [B,N,N_CLS], bg_logits [B,N,2])."""
         b, n, d = s.shape
         x = torch.cat([s, self.cls_emb.expand(b, N_CLS, d)], dim=1)
         full_mask = None
@@ -115,7 +116,6 @@ class MaskTransformer(nn.Module):
         features = features / torch.linalg.norm(features, dim=-1, keepdim=True)
         classes = classes / torch.linalg.norm(classes, dim=-1, keepdim=True)
         domain_masks = self.class_norm(features @ classes.transpose(1, 2))
-        lengths = None if mask is None else mask.sum(dim=1).round().long()
         bg_out, _ = self.bg_gru.run(features, lengths)
         return domain_masks, self.bg_out(bg_out)
 

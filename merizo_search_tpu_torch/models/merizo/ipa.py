@@ -26,6 +26,7 @@ Numerics follow the JAX package so that the two agree:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -59,10 +60,17 @@ def rotary_tables(n_pos: int = N_HEADS, dim: int = C_HIDDEN // 2):
 _ROT_COS, _ROT_SIN = (torch.from_numpy(a) for a in rotary_tables())
 
 
+@functools.cache
+def _rot_tables(device: torch.device):
+    """The rotary tables on `device`, copied there once: a copy from
+    pageable host memory waits for the card's queue."""
+    return _ROT_COS.to(device), _ROT_SIN.to(device)
+
+
 def rotary(x: torch.Tensor) -> torch.Tensor:
     """Rotate the first C_HIDDEN//2 channels of x [B,N,H,C] with per-head
     angles (see the module docstring's quirk)."""
-    cos, sin = _ROT_COS.to(x.device), _ROT_SIN.to(x.device)
+    cos, sin = _rot_tables(x.device)
     rot_dim = cos.shape[-1]
     t_rot, t_pass = x[..., :rot_dim], x[..., rot_dim:]
     x1 = t_rot[..., 0::2]
@@ -169,9 +177,10 @@ class IPAEncoder(nn.Module):
         self.layer_norm_ipa = nn.LayerNorm(C_S)
         self.transition = StructureModuleTransition()
 
-    def forward(self, s, z, R, t, mask=None):
-        """Returns s [B,N,C_S]."""
-        lengths = None if mask is None else mask.sum(dim=1).round().long()
+    def forward(self, s, z, R, t, mask=None, lengths=None):
+        """Returns s [B,N,C_S]. mask [B,N] on the device for the attention;
+        lengths [B], its row sums on the host, for the GRU (None: all
+        valid)."""
         s = self.linear_in(self.layer_norm_s(s))
         z = self.layer_norm_z(z)
         for _ in range(N_BLOCKS):

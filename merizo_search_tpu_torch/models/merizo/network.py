@@ -20,6 +20,7 @@ defaults differ: pass the same `--merizo_weights` to both to compare them.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -51,11 +52,18 @@ def alibi_slopes(heads: int = 16) -> np.ndarray:
 _SLOPES = torch.from_numpy(alibi_slopes(16))
 
 
+@functools.cache
+def _slopes(device: torch.device) -> torch.Tensor:
+    """The slopes on `device`, copied there once (a pageable copy waits for
+    the card's queue)."""
+    return _SLOPES.to(device)
+
+
 def alibi_bias(ri: torch.Tensor, clip: int = 32) -> torch.Tensor:
     """Symmetric ALiBi bias [B,H,N,N] from residue indices ri [B,N]
     (alibi.py:31-39; slope_factor=1, clip at 32 as used by network.py:50)."""
     rel = (ri[:, None, :] - ri[:, :, None]).abs().clamp(max=clip)
-    return -rel[:, None, :, :] * _SLOPES.to(ri.device)[None, :, None, None]
+    return -rel[:, None, :, :] * _slopes(ri.device)[None, :, None, None]
 
 
 class MerizoNet(nn.Module):
@@ -67,17 +75,21 @@ class MerizoNet(nn.Module):
         self.decoder_head = dec_mod.MaskTransformer()
 
     @torch.no_grad()
-    def forward_features(self, s, z, r, t, ri, mask=None):
+    def forward_features(self, s, z, r, t, ri, mask=None, lengths=None):
         """Heavy forward: projections + IPA encoder + decoder transformer.
 
         s [B,N,20] one-hot, z [B,N,N,1] CA distance map, r [B,N,3,3],
         t [B,N,3], ri [B,N] residue indices, mask [B,N] (1 valid, trailing
-        padding) or None when every row is valid.
+        padding) or None when every row is valid. lengths [B]: the mask's
+        row sums as a CPU tensor, so that the GRUs pack without asking the
+        card; read back from the mask (a sync) when not given.
 
         Returns (domain_masks [B,N,20], bg_logits [B,N,2]).
         """
-        enc = self.ipa(self.linear_s_in(s), self.linear_z_in(z), r, t, mask)
-        return self.decoder_head(enc, alibi_bias(ri), mask)
+        if mask is not None and lengths is None:
+            lengths = mask.sum(dim=1).round().long().cpu()
+        enc = self.ipa(self.linear_s_in(s), self.linear_z_in(z), r, t, mask, lengths)
+        return self.decoder_head(enc, alibi_bias(ri), mask, lengths)
 
     @torch.no_grad()
     def domain_confidence(self, domain_masks, sel_idx, sel_mask):
