@@ -5,14 +5,19 @@ server) on the card and checks them:
 
 1. device   the card's name and power limit (nvidia-smi) and torch's name;
 2. build    nvcc for the scan kernels (csrc/*.cu), g++ for TM-align, timed;
+            the ptxas report of every kernel (registers, spills, static
+            shared memory, warnings) from _build/nvcc.log, where this run
+            compiled the library (a cached library's rows say so);
 3. kernels  phase A (blockmax_scan) and phase C (gather_block_scores, all
             three scale modes) against their plain PyTorch versions on the
             card at N = 500,000 rows (Q = 32 and 256, bf16 and int8, length
-            mask on and off), then timed there and at the 16M-row scan shape;
-            and the cover invariant at both shapes (Q = 32 and 256 at
-            500,000 rows, Q = 256 at 2^24 rows; bf16 and int8, mask on and
-            off): phase C's max over each selected block below n_valid
-            equals phase A's BM for it, exactly;
+            mask on and off), then timed there and at the 16M-row scan shape
+            (phase A at Q = 32, 64, 128 and 256, one a query tile width,
+            and at Q = 256 with the length channel; phase C at Q = 256, KB
+            102); and the cover invariant at both shapes (Q = 32 and 256 at
+            500,000 rows, every tile width at 2^24 rows; bf16 and int8, mask
+            on and off): phase C's max over each selected block below
+            n_valid equals phase A's BM for it, exactly;
 4. fused    fused_topk against the plain exact scan: recall@100 = 1.0 at
             N = 500,000, Q = 256, k = 100 (scores within 1e-5 are ties);
 5. e2e      the `search` CLI on a 500,000-entry mmap DB with an int8 sidecar
@@ -176,7 +181,9 @@ JSON line {"stream": ..., "easy_search": ...} of phases 11-12, a
 JSON line {"phase_a_split": [...]}, a JSON line {"ivf": ...} of phase 13,
 a JSON line {"tmalign": ..., "serve": ...} of phases 14-15, a JSON line
 {"mesh": ...} of phase 16, the nvidia-smi line, a JSON
-line {"kernels": [...]}, and as its last line {"ok": true, "device": {...}}.
+line {"kernels": [...]} (each kernel with its ptxas rows and, for the scan
+kernels, the tile widths, stages and dynamic shared memory its launches
+take, read from the built library), and as its last line {"ok": true, "device": {...}}.
 Any failed check, build, launch or phase deadline raises and exits non-zero;
 with no CUDA device it exits non-zero before printing any result. Scratch
 files live in a temporary directory outside the checkout and are removed.
@@ -187,7 +194,9 @@ from __future__ import annotations
 import faulthandler
 import json
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import threading
@@ -196,13 +205,13 @@ import time
 import numpy as np
 import torch
 
-from merizo_search_tpu_torch.tools import _bench_util
+from merizo_search_tpu_torch.tools import _bench_util, perf_scan
 from merizo_search_tpu_torch.tools._bench_util import bound, device_line
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_BUDGET_S = 650       # hard watchdog: dump stacks and exit(1) past this
 # per-phase deadlines, a few times each phase's measured seconds
-PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "fused": 30, "e2e": 90,
+PHASE_BUDGET_S = {"device": 30, "build": 60, "kernels": 90, "fused": 30, "e2e": 90,
                   "pipelined": 20, "probes": 25, "variants": 30, "createdb": 120,
                   "segment": 90, "stream": 240, "easy_search": 150, "ivf": 120,
                   "tmalign": 180, "serve": 120, "mesh": 90}
@@ -275,12 +284,6 @@ def unit_rows(n, gen, dev, chunk=1 << 20):
     return out
 
 
-def library_product(q, db):
-    """The library yardstick for phase A: the whole score matrix q @ db.T by
-    one PyTorch call (cuBLAS bf16 GEMM, or the int8 `_int_mm` to int32)."""
-    return torch._int_mm(q, db.T) if q.dtype == torch.int8 else torch.matmul(q, db.T)
-
-
 def make_problem(n, nq, gen, dev):
     """bf16 and int8 versions of one seeded problem with the length channel."""
     from merizo_search_tpu_torch.ops.topk import quantize_blocks, quantize_rows
@@ -325,12 +328,65 @@ def cover_row(dtype, n, q, db, sc, bm, tl=None, qc=None, k=100):
     return row
 
 
+PTXAS_NOT_THIS_RUN = "not from this run: the library was loaded from the cache"
+
+
+def ptxas_report():
+    """Every kernel entry of the build's ptxas report (_build/nvcc.log,
+    written when this process compiled the library): registers, spill
+    stores and loads, stack frame and static shared memory, by demangled
+    name (c++filt, where the machine has it); and the report's warnings.
+    None where this process loaded a cached library: the log may then
+    belong to another build."""
+    from merizo_search_tpu_torch.ops import _build
+    from merizo_search_tpu_torch.utils.nativebuild import BUILD_DIR
+
+    path = os.path.join(BUILD_DIR, "nvcc.log")
+    if _build.build_seconds == 0:
+        return None
+    entries, cur, warnings = {}, None, []
+    with open(path) as fh:
+        for line in fh:
+            if "warning" in line:
+                warnings.append(line.strip())
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = entries.setdefault(m.group(1), {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur.update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
+    names = list(entries)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.split("\n")[:len(names)]
+    rows = [{"entry": re.sub(r"\(.*", "", n), **v} for n, v in zip(names, entries.values())]
+    return {"entries": rows, "warnings": warnings}
+
+
+def ptxas_rows(report, *kernels):
+    """The report's entries of the named __global__ functions (demangled,
+    or by their mangled name's length-prefixed part); PTXAS_NOT_THIS_RUN
+    without a report."""
+    if report is None:
+        return PTXAS_NOT_THIS_RUN
+    return [r for r in report["entries"]
+            if any(f"::{k}<" in r["entry"] or r["entry"].endswith(f"::{k}")
+                   or f"{len(k)}{k}I" in r["entry"] or f"{len(k)}{k}E" in r["entry"]
+                   for k in kernels)]
+
+
 def kernels_phase(dev, gen, flush, big):
     """Hold both kernels against their plain versions and to the cover
     invariant, then time them."""
     from merizo_search_tpu_torch.ops import blockmax, gather
-    from merizo_search_tpu_torch.ops.fused_scan import select_blocks, selected_scales
-    from merizo_search_tpu_torch.tools.perf_pipelined import make_queries
+    from merizo_search_tpu_torch.ops.fused_scan import select_blocks
 
     bm_modes, g_modes, cover = [], [], []
     p = make_problem(N_MAIN, 256, gen, dev)
@@ -349,12 +405,10 @@ def kernels_phase(dev, gen, flush, big):
                 cover.append(cover_row(dtype, p["n"], qq, db, sc, got, tl, qc))
                 ms = time_ms(lambda: blockmax.blockmax_scan(*args), flush=flush)
                 plain_ms = time_ms(lambda: blockmax.blockmax_plain(*args), 3, flush)
-                npad, nb = db.shape[0], db.shape[0] // 128
-                nbytes = (npad * 128 * isz + nq * 128 * isz + nq * nb * 4
-                          + (npad * 4 + nq * 4 if masked else 0)
-                          + (nb * 4 if sc is not None else 0))   # one scale a block
-                b_ms, b_by = bound(nbytes, 2 * nq * npad * 128, dtype)
-                lib = time_ms(lambda: library_product(qq, db), flush=flush)
+                npad = db.shape[0]
+                b_ms, b_by = perf_scan.phase_a_bound(nq, npad, isz, dtype, masked,
+                                                     sc is not None)
+                lib = time_ms(lambda: perf_scan.library_product(qq, db), flush=flush)
                 bm_modes.append({"dtype": dtype, "n": npad, "q": nq, "mask": masked,
                                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
@@ -379,13 +433,9 @@ def kernels_phase(dev, gen, flush, big):
                         reps = [time_ms(lambda: gather.gather_block_scores(*gargs, **kw),
                                         flush=flush) for _ in range(4 if nq == 32 else 0)]
                         gplain = time_ms(lambda: gather.gather_plain(*gargs, **kw), 3, flush)
-                        kbv = int((bidx >= 0).sum())
-                        nblk = int(torch.unique(bidx[bidx >= 0]).numel())
-                        gbytes = (nblk * 128 * (128 * isz + 4 + (4 if mode == "row_scales" else 0))
-                                  + nq * 128 * isz + bidx.numel() * 4
-                                  + (bidx.numel() * 4 if mode == "scale_sel" else 0)
-                                  + nq * 4 + g.numel() * 4)
-                        gb_ms, gb_by = bound(gbytes, 2 * kbv * 128 * 128, dtype)
+                        gb_ms, gb_by = perf_scan.phase_c_bound(
+                            nq, isz, bidx, dtype, masked=True, scale_sel=mode == "scale_sel",
+                            row_scales=mode == "row_scales")
                         g_modes.append({"dtype": dtype, "mode": mode, "n": npad, "q": nq,
                                         "kb": bidx.shape[1], "max_abs_err": gerr,
                                         "ms": gms, "plain_ms": gplain, "bound_ms": gb_ms,
@@ -393,39 +443,20 @@ def kernels_phase(dev, gen, flush, big):
                                         "ms_repeats": reps})
     del p
     torch.cuda.empty_cache()
-    # the 16M-row scan shape, Q = 256: kernel times and bounds only
+    # the 16M-row scan shape (tools/perf_scan.py's rows): phase A at every
+    # tile width (Q = 32, 64, 128, 256; at 256 with the length channel too),
+    # each BM held to the cover invariant; phase C at Q = 256, KB 102.
+    # Kernel and library times and bounds only
     for dtype in ("bf16", "int8"):
         db, sc = big[dtype]
-        q = make_queries(256, dtype, gen, dev)[0]
-        isz, nb = db.element_size(), N_BIG // 128
-        bm = blockmax.blockmax_scan(q, db, N_BIG, scales=sc)
-        cover.append(cover_row(dtype, N_BIG, q, db, sc, bm))
-        tl = torch.rand(N_BIG, generator=gen, device=dev) * 280.0
-        qc = torch.rand(256, generator=gen, device=dev) * 400.0
-        cover.append(cover_row(dtype, N_BIG, q, db, sc,
-                               blockmax.blockmax_scan(q, db, N_BIG, tl, qc, sc), tl, qc))
-        del tl
-        ms = time_ms(lambda: blockmax.blockmax_scan(q, db, N_BIG, scales=sc), 5, flush)
-        b_ms, b_by = bound(N_BIG * 128 * isz + 256 * 128 * isz + 256 * nb * 4
-                           + (nb * 4 if sc is not None else 0),
-                           2 * 256 * N_BIG * 128, dtype)
-        lib = time_ms(lambda: library_product(q, db), 3, flush)
-        bm_modes.append({"dtype": dtype, "n": N_BIG, "q": 256, "mask": False,
-                         "max_abs_err": None, "ms": ms, "plain_ms": None,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        bidx = select_blocks(bm, N_BIG, 100)
-        kw = {} if sc is None else {"scale_sel": selected_scales(sc, bidx)}
-        gms = time_ms(lambda: gather.gather_block_scores(q, db, bidx, N_BIG, **kw), 10, flush)
-        nblk = int(torch.unique(bidx[bidx >= 0]).numel())
-        gb_ms, gb_by = bound(nblk * 128 * 128 * isz + 256 * 128 * isz
-                             + bidx.numel() * 4 * (1 + len(kw))
-                             + 256 * bidx.shape[1] * 128 * 4,
-                             2 * int((bidx >= 0).sum()) * 128 * 128, dtype)
-        g_modes.append({"dtype": dtype, "mode": "none" if sc is None else "scale_sel",
-                        "n": N_BIG, "q": 256, "kb": bidx.shape[1], "max_abs_err": None,
-                        "ms": gms, "plain_ms": None, "bound_ms": gb_ms,
-                        "bound_by": gb_by, "library_ms": None})
-        del bm
+        rows = perf_scan.phase_rows(
+            db, sc, N_BIG, (32, 64, 128, 256), (256,), ((256, 100),), 10, flush, dev, gen,
+            on_bm=lambda q, bm, tl, qc: cover.append(
+                cover_row(dtype, N_BIG, q, db, sc, bm, tl, qc)))
+        for r in rows:
+            row = {k: v for k, v in r.items() if k != "kernel"}
+            row.update(max_abs_err=None, plain_ms=None)
+            (bm_modes if r["kernel"] == "blockmax_scan" else g_modes).append(row)
     return bm_modes, g_modes, cover
 
 
@@ -611,7 +642,7 @@ def probes_phase(dev, gen, flush, big):
                          "sink_err": serr, "ms": row["ms"], "ms_from": tool,
                          "plain_ms": time_ms(lambda: probes.mini_scan_plain(*args), 1, flush),
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                         "library_ms": time_ms(lambda: library_product(q, db), 3, flush)})
+                         "library_ms": time_ms(lambda: perf_scan.library_product(q, db), 3, flush)})
     x = big["int8"][0]
     hbm = tools["perf_hbm"]["rows"]
     for view, tile in ((x, 65536), (x.view(-1, 1024), 8192)):
@@ -2385,6 +2416,15 @@ def main():
             t = time.perf_counter()
             _build.library()
             ph.notes.append(f"nvcc {time.perf_counter() - t:.2f} s")
+            ptx = ptxas_report()
+            if ptx is None:
+                ph.notes.append(f"ptxas: {PTXAS_NOT_THIS_RUN}")
+            else:
+                ents = ptx["entries"]
+                ph.notes.append(f"ptxas: {len(ents)} kernels, registers <= "
+                                f"{max(r['registers'] for r in ents)}, spill bytes "
+                                f"{sum(r['spill_stores'] + r['spill_loads'] for r in ents)}"
+                                f", {len(ptx['warnings'])} warnings")
             t = time.perf_counter()
             native.load()
             check(native_parse.available(), "the native CA parser did not build")
@@ -2547,6 +2587,20 @@ def main():
                     "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                     **extra, "modes": modes}
 
+        from merizo_search_tpu_torch.ops import blockmax as bmx
+        from merizo_search_tpu_torch.ops import gather as gth
+
+        dtypes = {"bf16": torch.bfloat16, "int8": torch.int8}
+        # the tile width N each batch gets, and the stages and the dynamic
+        # shared memory of each (dtype, N) of phase A's walk and of phase C,
+        # as the launchers ask for them (read from the built library)
+        walk_geom = {"tile_width": {q: bmx.tile_width(q) for q in (1, 32, 33, 64, 128, 256, 300)},
+                     "stages": {k: bmx.walk_layout(d, 32)["stages"] for k, d in dtypes.items()},
+                     "dynamic_smem": {f"{k} N={n}": bmx.walk_layout(d, n)["launch"]
+                                      for k, d in dtypes.items() for n in bmx.TILE_WIDTHS}}
+        gather_geom = {"columns_a_cta": 1,
+                       "dynamic_smem": {k: gth.gather_layout(d)["launch"]
+                                        for k, d in dtypes.items()}}
         kernels = [
             entry("blockmax_scan", "merizo_search_tpu_torch/csrc/blockmax.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:65", bm_modes,
@@ -2554,7 +2608,8 @@ def main():
                   launches["blockmax_scan"] + sum(c["blockmax_scan"] for c in ivf_counts.values())
                   + serve_counts["blockmax_scan"]
                   + sum(c["blockmax_scan"] for c in mesh_counts.values()),
-                  cover=cover, launches_by_path={
+                  cover=cover, geometry=walk_geom,
+                  ptxas=ptxas_rows(ptx, "blockmax_kernel"), launches_by_path={
                       "search": launches["blockmax_scan"],
                       "serve": serve_counts["blockmax_scan"],
                       **{f"ivf_{k}": c["blockmax_scan"] for k, c in ivf_counts.items()},
@@ -2568,6 +2623,7 @@ def main():
                   + serve_counts["gather_block_scores"]
                   + sum(c["gather_block_scores"] for c in mesh_counts.values()),
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode)",
+                  geometry=gather_geom, ptxas=ptxas_rows(ptx, "gather_kernel", "gather_kernel_f32"),
                   launches_by_path={
                       "search": launches["gather_block_scores"],
                       "serve": serve_counts["gather_block_scores"],
@@ -2589,6 +2645,8 @@ def main():
                   + sum(c["gather_block_scores_by_block"] for c in mesh_counts.values()),
                   kernels="inversion bb_count, bb_alloc (gather.cu); CTA bodies "
                           "gather_by_block, gather_by_block_f32 (gather.cuh)",
+                  ptxas=ptxas_rows(ptx, "gather_by_block_kernel", "gather_by_block_kernel_f32",
+                                   "bb_count", "bb_alloc"),
                   also_replaces="merizo_search_tpu/ops/pallas_scan.py:847 (row_scales mode: "
                                 "the IVF's int8 probe)",
                   launches_by_path={
@@ -2605,24 +2663,27 @@ def main():
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
                   {"dtype": "bf16", "q": 256, "n": N_BIG},
-                  pipe_counts["blockmax_scan_gather"],
+                  pipe_counts["blockmax_scan_gather"], geometry=walk_geom,
+                  ptxas=ptxas_rows(ptx, "bm_gather_kernel"),
                   yardstick="sequential_kernels_ms: phase A then phase C (int8: with the "
                             "carried block scales), two launches, same inputs; "
                             "fused_phase_a_only_ms: this kernel with an empty previous selection"),
-            entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu (tensor cores: "
-                  "phase A's walk, csrc/blockmax.cuh walk_blocks, every score from "
-                  "csrc/scan_common.cuh mma_rows)",
+            entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu (phase A's walk, "
+                  "csrc/blockmax.cuh walk_blocks: TMA ring, every score from "
+                  "csrc/scan_common.cuh score_issue, wgmma)",
                   "tools/perf_floor2.py:32", mini_modes,
                   {"dtype": "bf16", "mode": "reduce"}, probe_counts["mini_scan"],
+                  geometry=walk_geom, ptxas=ptxas_rows(ptx, "mini_scan_kernel"),
                   also_replaces="tools/perf_int8_floor.py:37 (tile 32768, int8)"),
             entry("stream_probe", "merizo_search_tpu_torch/csrc/probes.cu",
                   "tools/perf_hbm.py:37", stream_modes, {"d": 128, "tile": 65536},
-                  probe_counts["stream_probe"],
+                  probe_counts["stream_probe"], ptxas=ptxas_rows(ptx, "stream_probe_kernel"),
                   yardstick="torch_sum_ms: x.sum(dtype=torch.int32) over the same bytes"),
             entry("slab_scan", "merizo_search_tpu_torch/csrc/slab_interleave.cu",
                   "tools/perf_slab_interleave.py:38", slab_modes,
                   {"dtype": "bf16", "tile": 32768, "nslab": 2, "sbm": True},
-                  var_counts["slab_scan"],
+                  var_counts["slab_scan"], geometry=walk_geom,
+                  ptxas=ptxas_rows(ptx, "slab_scan_kernel"),
                   yardstick="baseline_blockmax_ms: blockmax_scan with the length channel "
                             "off, same inputs (the JAX tool's baseline)"),
             entry("gather_variant", "merizo_search_tpu_torch/csrc/gather_variants.cu",
@@ -2631,6 +2692,7 @@ def main():
                   {"dtype": "int8", "mode": "full"},
                   sum(var_counts[f"gather_variant.{m}"]
                       for m in ("dma_only", "concat_only", "full")),
+                  geometry=gather_geom, ptxas=ptxas_rows(ptx, "gather_variant_kernel"),
                   yardstick="phase_c_ms: gather_block_scores (no scales) on the same blocks; "
                             "no single PyTorch call computes the gather"),
             entry("gather_variant (int32view)",

@@ -1,9 +1,10 @@
 // Phase C launchers: the per-query kernel runs gather_body (gather.cuh, whose
 // header says what it computes, which TPU kernels it replaces and what
-// bounds it) once per CTA of a (queries, column groups) grid; the
+// bounds it) once per CTA of a (queries, selected columns) grid; the
 // block-major launch (the IVF's) inverts bidx into a CSR by block and runs
 // gather_by_block / gather_by_block_f32 once per CTA of a grid over the
-// distinct selected blocks.
+// distinct selected blocks. The bf16/int8 kernels read the DB through a TMA
+// tensor map encoded here for each call (scan_common.cuh db_tensor_map).
 #include <algorithm>
 
 #include "gather.cuh"
@@ -12,30 +13,30 @@ namespace mst {
 
 template <class T>
 __global__ void __launch_bounds__(GTHREADS)
-gather_kernel(const typename T::In* __restrict__ q,
-              const typename T::In* __restrict__ db,
+gather_kernel(const __grid_constant__ CUtensorMap map, const typename T::In* __restrict__ q,
               const float* __restrict__ tl, const float* __restrict__ qcap,
               const int* __restrict__ bidx, const float* __restrict__ scale_sel,
               const float* __restrict__ scales, float* __restrict__ out, int kb,
               long long n_valid) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gather_body<T>(smem, q, db, tl, qcap, bidx, scale_sel, scales, out, kb,
-                 n_valid, blockIdx.x, blockIdx.y);
+  gather_body<T>(smem, map, q, tl, qcap, bidx, scale_sel, scales, out, kb, n_valid, blockIdx.x,
+                 blockIdx.y);
 }
 
 template <class T>
-cudaError_t launch_gather(const void* q, const void* db, const float* tl,
-                          const float* qcap, const int* bidx,
-                          const float* scale_sel, const float* scales,
-                          float* out, int nq, int kb, long long n_valid,
-                          cudaStream_t stream) {
-  const size_t smem = gather_smem<T>();
+int launch_gather(const void* q, const void* db, int nb, const float* tl, const float* qcap,
+                  const int* bidx, const float* scale_sel, const float* scales, float* out,
+                  int nq, int kb, long long n_valid, cudaStream_t stream) {
+  CUtensorMap map;
+  const int rc = db_tensor_map<T>(&map, db, (long long)nb * BLOCK);
+  if (rc != 0) return rc;
+  const size_t smem = GatherSmem<T>::LAUNCH;
   cudaError_t err = allow_smem(gather_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(nq, (kb + GROUP - 1) / GROUP);
+  dim3 grid(nq, kb);
   gather_kernel<T><<<grid, GTHREADS, smem, stream>>>(
-      static_cast<const typename T::In*>(q), static_cast<const typename T::In*>(db),
-      tl, qcap, bidx, scale_sel, scales, out, kb, n_valid);
+      map, static_cast<const typename T::In*>(q), tl, qcap, bidx, scale_sel, scales, out, kb,
+      n_valid);
   return cudaGetLastError();
 }
 
@@ -47,7 +48,8 @@ gather_kernel_f32(const float* __restrict__ q, const float* __restrict__ db,
                   long long n_valid) {
   extern __shared__ __align__(16) unsigned char smem[];
   gather_cols_f32(smem, q, db, tl, qcap, bidx, scale_sel, scales, out, kb, n_valid,
-                  blockIdx.x, blockIdx.y * GROUP, min(kb, ((int)blockIdx.y + 1) * GROUP));
+                  blockIdx.x, blockIdx.y * F32_GROUP,
+                  min(kb, ((int)blockIdx.y + 1) * F32_GROUP));
 }
 
 cudaError_t launch_gather_f32(const float* q, const float* db, const float* tl,
@@ -57,7 +59,7 @@ cudaError_t launch_gather_f32(const float* q, const float* db, const float* tl,
   const size_t smem = gather_f32_smem();
   cudaError_t err = allow_smem(gather_kernel_f32, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(nq, (kb + GROUP - 1) / GROUP);
+  dim3 grid(nq, (kb + F32_GROUP - 1) / F32_GROUP);
   gather_kernel_f32<<<grid, GTHREADS, smem, stream>>>(q, db, tl, qcap, bidx, scale_sel,
                                                       scales, out, kb, n_valid);
   return cudaGetLastError();
@@ -173,13 +175,13 @@ cudaError_t invert_blocks(const int* bidx, int* ws, int nq, int kb, int nb,
 
 template <class T>
 __global__ void __launch_bounds__(GTHREADS, BB_CTAS<T>)
-gather_by_block_kernel(const typename T::In* __restrict__ q,
-                       const typename T::In* __restrict__ db, const float* __restrict__ tl,
+gather_by_block_kernel(const __grid_constant__ CUtensorMap map,
+                       const typename T::In* __restrict__ q, const float* __restrict__ tl,
                        const float* __restrict__ qcap, const float* __restrict__ scale_sel,
                        const float* __restrict__ scales, float* __restrict__ out, int kb,
                        long long n_valid, ByBlock cs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gather_by_block<T>(smem, q, db, tl, qcap, scale_sel, scales, out, kb, n_valid, cs);
+  gather_by_block<T>(smem, map, q, tl, qcap, scale_sel, scales, out, kb, n_valid, cs);
 }
 
 __global__ void __launch_bounds__(GTHREADS)
@@ -218,7 +220,7 @@ extern "C" int mst_invert_blocks(const void* bidx, void* ws, int nq, int kb, int
 
 // Block-major phase C: mst_gather_block_scores's contract (dtype, scale
 // modes, masks, output), db of nb = Npad/128 blocks, `ws` a workspace of
-// mst_by_block_ws(nb, nq*kb) int32s.
+// mst_by_block_ws(nb, nq*kb) int32s. Returns as mst_gather_block_scores.
 extern "C" int mst_gather_by_block(int dtype, const void* q, const void* db, const void* tl,
                                    const void* qcap, const void* bidx, const void* scale_sel,
                                    const void* scales, void* out, void* ws, int nq, int kb,
@@ -235,40 +237,62 @@ extern "C" int mst_gather_by_block(int dtype, const void* q, const void* db, con
   const ByBlock cs{w + sec[2], w + sec[3], w + sec[1], w + sec[4], nb};
   auto o = static_cast<float*>(out);
   const int grid = (int)(std::min<long long>(nb, m) + (m + PAD_SLOTS - 1) / PAD_SLOTS);
+  CUtensorMap map;
+  if (dtype == 0 || dtype == 1) {
+    const int rc = dtype == 0 ? db_tensor_map<Bf16>(&map, db, (long long)nb * BLOCK)
+                              : db_tensor_map<Int8>(&map, db, (long long)nb * BLOCK);
+    if (rc != 0) return rc;
+  }
   if (dtype == 0)
-    return launch_by_block(gather_by_block_kernel<Bf16>, by_block_smem<Bf16>(), grid, s,
-                           static_cast<const __nv_bfloat16*>(q),
-                           static_cast<const __nv_bfloat16*>(db), f(tl), f(qcap),
+    return launch_by_block(gather_by_block_kernel<Bf16>, ByBlockSmem<Bf16>::LAUNCH, grid, s,
+                           map, static_cast<const __nv_bfloat16*>(q), f(tl), f(qcap),
                            f(scale_sel), f(scales), o, kb, n_valid, cs);
   if (dtype == 1)
-    return launch_by_block(gather_by_block_kernel<Int8>, by_block_smem<Int8>(), grid, s,
-                           static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
-                           f(tl), f(qcap), f(scale_sel), f(scales), o, kb, n_valid, cs);
+    return launch_by_block(gather_by_block_kernel<Int8>, ByBlockSmem<Int8>::LAUNCH, grid, s,
+                           map, static_cast<const int8_t*>(q), f(tl), f(qcap), f(scale_sel),
+                           f(scales), o, kb, n_valid, cs);
   if (dtype == 2)
     return launch_by_block(gather_by_block_kernel_f32, by_block_f32_smem(), grid, s, f(q),
                            f(db), f(tl), f(qcap), f(scale_sel), f(scales), o, kb, n_valid, cs);
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = bf16, 1 = int8, 2 = f32. tl/qcap: both or neither. At most one of
-// scale_sel / scales is non-null.
+// dtype: 0 = bf16, 1 = int8, 2 = f32. db: nb blocks. tl/qcap: both or
+// neither. At most one of scale_sel / scales is non-null. Returns 0, a
+// cudaError_t, or mst::ERR_TMAP + the tensor-map encode's CUresult.
 extern "C" int mst_gather_block_scores(int dtype, const void* q, const void* db,
                                        const void* tl, const void* qcap,
                                        const void* bidx, const void* scale_sel,
                                        const void* scales, void* out, int nq,
-                                       int kb, long long n_valid, void* stream) {
+                                       int kb, int nb, long long n_valid, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto ib = static_cast<const int*>(bidx);
   auto o = static_cast<float*>(out);
   if (dtype == 0)
-    return mst::launch_gather<mst::Bf16>(q, db, f(tl), f(qcap), ib, f(scale_sel),
+    return mst::launch_gather<mst::Bf16>(q, db, nb, f(tl), f(qcap), ib, f(scale_sel),
                                          f(scales), o, nq, kb, n_valid, s);
   if (dtype == 1)
-    return mst::launch_gather<mst::Int8>(q, db, f(tl), f(qcap), ib, f(scale_sel),
+    return mst::launch_gather<mst::Int8>(q, db, nb, f(tl), f(qcap), ib, f(scale_sel),
                                          f(scales), o, nq, kb, n_valid, s);
   if (dtype == 2)
     return mst::launch_gather_f32(f(q), f(db), f(tl), f(qcap), ib, f(scale_sel),
                                   f(scales), o, nq, kb, n_valid, s);
+  return cudaErrorInvalidValue;
+}
+
+// The per-query phase-C body's shared-memory layout as the kernel is built
+// with it (GatherSmem<T>, gather.cuh), for dtype 0 = bf16 / 1 = int8:
+// out[0..4] = the offsets BT, TL, BAR, the layout's bytes and the launch's
+// (with the alignment slack). Returns 0 or cudaErrorInvalidValue. Host only.
+extern "C" int mst_gather_layout(int dtype, int* out) {
+  auto fill = [&](auto t) {
+    using L = mst::GatherSmem<decltype(t)>;
+    const int v[5] = {L::BT, L::TL, L::BAR, L::BYTES, L::LAUNCH};
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+    return 0;
+  };
+  if (dtype == 0) return fill(mst::Bf16{});
+  if (dtype == 1) return fill(mst::Int8{});
   return cudaErrorInvalidValue;
 }

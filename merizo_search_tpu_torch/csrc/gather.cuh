@@ -1,5 +1,5 @@
 // Phase C of the fused exact top-k scan: rescore the selected 128-row blocks.
-// (The CTA body; the kernel and its launcher are in gather.cu.)
+// (The CTA bodies; the kernels and their launchers are in gather.cu.)
 //
 // Replaces two Pallas kernels of the merizo_search TPU package
 // (ops/pallas_scan.py): the kernel inside `gather_block_scores_dma` (the
@@ -10,138 +10,128 @@
 //   - no scales:           out = score                       (bf16, or raw int8)
 //   - scale_sel [Q, KB]:   out = score * scale_sel[q, col]   (int8, production)
 //   - scales [Npad]:       out = score * scales[row]         (per-row mode)
-// The f32 mode (at the end of this file) has a body of its own on the CUDA
-// cores, with the same masks and layout.
+// The f32 mode (further down) has a body of its own on the CUDA cores, with
+// the same masks and layout.
 // out[q, col*128 + r] is the score of row bidx[q, col]*128 + r, or NEG_CAP
 // where bidx is -1 (padding), the row is >= n_valid, the length channel
 // masks it (!(tl[row] <= qcap[q])), or the score is NaN.
 //
-// Each score comes from the same `mma_rows` as phase A's (scan_common.cuh),
-// with the query in the N slot it has in phase A (qi % 8) and zeros in the
-// other seven: the tensor core sees each (row, query) pair in the same
-// position, with the same K order, so a row scores the same float in both
-// phases, and int8 scaling is the same f32 multiply of the same integer.
+// Each score comes from phase A's routine (scan_common.cuh `score_issue`):
+// wgmma m64n8 on each 64-row half of the block, with the query in N slot
+// qi % 8 of the 8-wide B tile (the slot it has in phase A) and zeros in the
+// other seven, the same k-steps in the same order from zero. So a row scores
+// the same float in both phases, and int8 scaling is the same f32 multiply
+// of the same integer.
 //
 // Bound on the H100: each selected block is 32 KB (bf16) of scattered but
 // contiguous reads, plus the [Q, KB*128] f32 output; at KB ~ k+2 the kernel
-// moves a few MB per batch and is bound by bytes and launch latency; on
-// tensor cores the dot no longer counts. Design: one CTA per (query, group
-// of GROUP selected columns); the CTA reads its own bidx entries and walks
-// its columns through a ring of Traits::GSTAGES slots filled by cp.async
-// (the next column in flight while one is scored; two slots, not phase A's
-// three, so that more CTAs fit an SM); warp w < 4 scores
-// m-tiles 2w and 2w+1, and the 8 lanes that hold the query's N slot write
-// the scores.
+// moves a few MB per batch and is bound by bytes and, at the search shape
+// (Q 32, KB 12: 3.3 us of bytes), by the latency of one block's read.
+// Design: one CTA of one warpgroup per (query, selected column): thread 0
+// issues the block's TMA load as soon as the CTA's barrier exists, while the
+// CTA stages the query's B tile, so each column waits on one read latency
+// and the columns of a batch all wait at once (a bf16 CTA takes 36 KB of
+// shared memory, six an SM). (One CTA for two or four columns, each its
+// own slot and barrier, was no faster on an H100: equal in bf16, slower in
+// int8, at Q 32, KB 12; PERF.md.) gather_variants.cu's `full` mode runs this
+// body on the same grid.
 #pragma once
 
 #include "scan_common.cuh"
 
 namespace mst {
 
-constexpr int GTHREADS = BLOCK;  // 4 warps
-constexpr int GROUP = 4;         // selected blocks per CTA
+constexpr int GTHREADS = BLOCK;  // one warpgroup
 
+// Byte offsets of gather_body's shared memory (after align_smem): the
+// block's slot (1024-aligned), the query's B tile (8 rows), the block's tl
+// values, the barrier. Six CTAs fit an SM.
 template <class T>
-size_t gather_smem() {
-  return (size_t)T::GSTAGES * Slot<T>::BYTES;
-}
+struct GatherSmem {
+  static constexpr int BT = Slot<T>::BYTES;
+  static constexpr int TL = BT + 8 * Slot<T>::ROWB;
+  static constexpr int BAR = TL + TL_BYTES;
+  static constexpr int BYTES = BAR + 8;
+  static constexpr int LAUNCH = BYTES + SW_PERIOD;
+  static_assert(BT % SW_PERIOD == 0 && TL % 16 == 0 && BAR % 8 == 0, "GatherSmem alignment");
+  static_assert(6 * (LAUNCH + SMEM_RESERVED) <= SMEM_SM, "six phase-C CTAs an SM");
+};
 
-// Query `qi` against its selected columns [c_begin, c_end). Needs at least
-// GTHREADS threads (warps past the 4th help stage rows and score none) and
-// gather_smem<T>() bytes at `smem`. With pad_neg, bidx -1 is padding
-// (NEG_CAP, nothing read); without, a negative index scores block 0, as the
-// TPU gather variants clamp it (gather_variants.cu).
+// One CTA's work: query `qi` against its selected column `col`, through the
+// DB's tensor map into one slot. Needs GTHREADS threads (threadIdx.x <
+// GTHREADS; a caller with more returns the others first: the body meets on
+// named barrier 1) and GatherSmem<T>::LAUNCH bytes at `smem_raw`.
+// gather_kernel runs it with the CTA's grid coordinates, bm_gather.cu from
+// the phase-C part of its grid. With pad_neg, bidx -1 is padding (NEG_CAP,
+// nothing read); without, a negative index scores block 0, as the TPU
+// gather variants clamp it (gather_variants.cu).
 template <class T>
 __device__ __forceinline__ void
-gather_cols(unsigned char* smem, const typename T::In* __restrict__ q,
-            const typename T::In* __restrict__ db,
+gather_body(unsigned char* smem_raw, const CUtensorMap& map, const typename T::In* __restrict__ q,
             const float* __restrict__ tl, const float* __restrict__ qcap,
             const int* __restrict__ bidx, const float* __restrict__ scale_sel,
             const float* __restrict__ scales, float* __restrict__ out, int kb,
-            long long n_valid, int qi, int c_begin, int c_end, bool pad_neg) {
-  constexpr int S = T::GSTAGES;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+            long long n_valid, int qi, int col, bool pad_neg = true) {
+  using G = GatherSmem<T>;
+  constexpr int CH = Slot<T>::CHUNKS;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, tig = tid & 3;
+  const long long sel = (long long)qi * kb + col;
+  float* o = out + sel * BLOCK;
+  int b = bidx[sel];
+  if (b < 0) {
+    if (pad_neg) {  // the same for every thread of the CTA
+      o[tid] = NEG_CAP;
+      return;
+    }
+    b = 0;
+  }
+  unsigned char* smem = align_smem(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + G::BAR);
+  float* tls = reinterpret_cast<float*>(smem + G::TL);
   const int slot_n = qi % 8;                 // the query's N slot in phase A
-  uint32_t bfrag[1][T::KSTEPS][2];
-  load_query_frag<T>(bfrag[0], q, qi, g == slot_n);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    load_block<T>(smem, tls, map, tl, b, bar);
+  }
+  for (int c = tid; c < 8 * CH; c += GTHREADS)   // the B tile: the query in row slot_n
+    stage_row_chunk<T>(smem + G::BT, 8, c / CH, c % CH,
+                       c / CH == slot_n ? q + (long long)qi * DIM : nullptr);
+  fence_async_smem();
   const float qc = tl != nullptr ? qcap[qi] : 0.f;
-  const int ncol = max(0, c_end - c_begin);
-  auto block_of = [&](int c) {  // block id of column c, or -1 for padding
-    const int b = bidx[(long long)qi * kb + c];
-    return b < 0 ? (pad_neg ? -1 : 0) : b;
-  };
-
+  const float ss = scale_sel != nullptr ? scale_sel[sel] : 1.f;
+  bar_sync(1, GTHREADS);  // the B tile is written and the barrier initialised
+  mbar_wait(bar, 0);
+  typename T::Acc acc[2][4];
+  const uint32_t a = smem_addr(smem), bt = smem_addr(smem + G::BT);
 #pragma unroll
-  for (int st = 0; st < S - 1; ++st) {
-    if (st < ncol) {
-      const int b = block_of(c_begin + st);
-      if (b >= 0) load_block<T>(smem + st * Slot<T>::BYTES, db, tl, b);
-    }
-    cp_async_commit();
-  }
-  for (int i = 0; i < ncol; ++i) {
-    cp_async_wait<S - 2>();
-    __syncthreads();  // column i has landed; slot (i-1) % S is free
-    if (i + S - 1 < ncol) {
-      const int b = block_of(c_begin + i + S - 1);
-      if (b >= 0) load_block<T>(smem + ((i + S - 1) % S) * Slot<T>::BYTES, db, tl, b);
-    }
-    cp_async_commit();
-
-    const long long sel = (long long)qi * kb + c_begin + i;
-    const int b = block_of(c_begin + i);
-    float* o = out + sel * BLOCK;
-    if (b < 0) {
-      if (threadIdx.x < BLOCK) o[threadIdx.x] = NEG_CAP;
-      continue;
-    }
-    if (warp >= 4) continue;
-    const unsigned char* slot = smem + (i % S) * Slot<T>::BYTES;
-    const float* tlb = reinterpret_cast<const float*>(slot + Slot<T>::TL);
-    const float ss = scale_sel != nullptr ? scale_sel[sel] : 1.f;
+  for (int h = 0; h < 2; ++h)
+    score_issue<T, 8>(acc[h], a + h * HALF * ATOM_B, Slot<T>::ATOM, bt, 8 * ATOM_B);
+  wgmma_wait<0>();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  if (tig != slot_n / 2) return;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int mt = 2 * warp + h;
-      typename T::Acc acc[1][4];
-      mma_rows<T, 1>(acc, slot + mt * 16 * Slot<T>::PITCH, bfrag, 1);
-      if (tig != slot_n / 2) continue;
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = mt * 16 + g + 8 * e;
-        const long long row = (long long)b * BLOCK + r;
-        float s = (float)acc[0][2 * e + slot_n % 2];
-        bool keep = row < n_valid;
-        if (tl != nullptr) keep = keep && tlb[r] <= qc;
-        if (scale_sel != nullptr) s *= ss;
-        if (scales != nullptr) s *= scales[row];
-        o[r] = (keep && s == s) ? s : NEG_CAP;
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int r = h * HALF + warp * 16 + g + 8 * e;
+      const long long row = (long long)b * BLOCK + r;
+      // constant indices keep acc in registers
+      float v = (float)(slot_n & 1 ? acc[h][2 * e + 1] : acc[h][2 * e]);
+      bool keep = row < n_valid;
+      if (tl != nullptr) keep = keep && tls[r] <= qc;
+      if (scale_sel != nullptr) v *= ss;
+      if (scales != nullptr) v *= scales[row];
+      o[r] = (keep && v == v) ? v : NEG_CAP;
     }
-  }
-  cp_async_wait<0>();  // nothing in flight when the CTA's shared memory is reused
-}
-
-// One CTA's work: query `qi` against its selected columns [group * GROUP,
-// +GROUP). gather_kernel runs it with the CTA's grid coordinates;
-// bm_gather.cu runs it from the phase-C part of its grid.
-template <class T>
-__device__ __forceinline__ void
-gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
-            const typename T::In* __restrict__ db,
-            const float* __restrict__ tl, const float* __restrict__ qcap,
-            const int* __restrict__ bidx, const float* __restrict__ scale_sel,
-            const float* __restrict__ scales, float* __restrict__ out, int kb,
-            long long n_valid, int qi, int group) {
-  gather_cols<T>(smem, q, db, tl, qcap, bidx, scale_sel, scales, out, kb, n_valid,
-                 qi, group * GROUP, min(kb, (group + 1) * GROUP), true);
 }
 
 // ---------------------------------------------------------------------------
 // Phase C on f32 rows: the mode of the TPU kernel in `gather_block_scores_dma`
 // that the JAX package's IVF rerank runs on its f32 sidecar (search/ivf.py
 // `_rerank_blocks`: the top-(k+1) probed blocks rescored exactly in f32).
-// The contract is gather_cols's, masks and layout included; only the dot
+// The contract is gather_body's, masks and layout included; only the dot
 // differs. Tensor cores would take f32 only as TF32, which keeps ~3 decimal
 // digits, so the score is a plain FFMA chain on the CUDA cores: the query in
 // shared memory, one row per thread, k = 0..127 in order from a zero
@@ -149,18 +139,55 @@ gather_body(unsigned char* smem, const typename T::In* __restrict__ q,
 // lies). A row is 128 FMAs on 512 bytes (0.5 FLOP a byte), so the 64 KB of
 // each selected block, scattered but contiguous, bound it by bytes.
 //
-// Design: one CTA of 128 threads per (query, GROUP columns), as the bf16 and
-// int8 modes; blocks staged by cp.async into a ring of two Slot<F32> slots
+// Design: one CTA of 128 threads per (query, F32_GROUP columns); blocks
+// staged by cp.async (the FFMA chain reads rows, not descriptors, so it keeps
+// the pitched layout below) into a ring of two F32Slot slots
 // (pitch 528 bytes: the eight 16-byte loads of a quarter-warp at the same k
 // fall in distinct bank groups), one block in flight while one is scored.
 // Two 68 KB slots leave one CTA an SM.
 struct F32 {
   using In = float;
-  static constexpr int GSTAGES = 2;
+  static constexpr int STAGES = 2;
+};
+constexpr int F32_GROUP = 4;  // selected blocks per CTA of the f32 body
+
+// A ring slot of the f32 body: one block's rows at pitch ROWB + 16 bytes,
+// then its 128 length-channel values.
+struct F32Slot {
+  static constexpr int ROWB = DIM * 4;
+  static constexpr int PITCH = ROWB + 16;
+  static constexpr int TL = BLOCK * PITCH;
+  static constexpr int BYTES = TL + BLOCK * 4;
 };
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of block `b` (and tl's values for it when tl is
+// non-null) into `slot`, spread over the CTA's threads; the caller commits.
+__device__ __forceinline__ void load_block_f32(unsigned char* slot, const float* __restrict__ db,
+                                               const float* __restrict__ tl, long long b) {
+  constexpr int CPR = F32Slot::ROWB / 16;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(db + b * BLOCK * DIM);
+  for (int c = threadIdx.x; c < BLOCK * CPR; c += blockDim.x)
+    cp_async16(slot + (c / CPR) * F32Slot::PITCH + (c % CPR) * 16, src + c * 16);
+  if (tl != nullptr)
+    for (int c = threadIdx.x; c < BLOCK / 4; c += blockDim.x)
+      cp_async16(slot + F32Slot::TL + c * 16, tl + b * BLOCK + c * 4);
+}
+
 inline size_t gather_f32_smem() {
-  return (size_t)F32::GSTAGES * Slot<F32>::BYTES + DIM * sizeof(float);
+  return (size_t)F32::STAGES * F32Slot::BYTES + DIM * sizeof(float);
 }
 
 __device__ __forceinline__ void
@@ -170,8 +197,8 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
                 const float* __restrict__ scale_sel, const float* __restrict__ scales,
                 float* __restrict__ out, int kb, long long n_valid, int qi,
                 int c_begin, int c_end) {
-  constexpr int S = F32::GSTAGES;
-  using SL = Slot<F32>;
+  constexpr int S = F32::STAGES;
+  using SL = F32Slot;
   float* qs = reinterpret_cast<float*>(smem + S * SL::BYTES);
   for (int d = threadIdx.x; d < DIM; d += blockDim.x) qs[d] = q[(long long)qi * DIM + d];
   const float qc = tl != nullptr ? qcap[qi] : 0.f;
@@ -182,7 +209,7 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
   for (int st = 0; st < S - 1; ++st) {
     if (st < ncol) {
       const int b = block_of(c_begin + st);
-      if (b >= 0) load_block<F32>(smem + st * SL::BYTES, db, tl, b);
+      if (b >= 0) load_block_f32(smem + st * SL::BYTES, db, tl, b);
     }
     cp_async_commit();
   }
@@ -191,7 +218,7 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
     __syncthreads();  // column i has landed (and qs is written); slot (i-1) % S is free
     if (i + S - 1 < ncol) {
       const int b = block_of(c_begin + i + S - 1);
-      if (b >= 0) load_block<F32>(smem + ((i + S - 1) % S) * SL::BYTES, db, tl, b);
+      if (b >= 0) load_block_f32(smem + ((i + S - 1) % S) * SL::BYTES, db, tl, b);
     }
     cp_async_commit();
 
@@ -226,12 +253,13 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
 }
 
 
+
 // ---------------------------------------------------------------------------
 // Block-major phase C: the IVF launches (the probe gather, bf16 or int8, and
-// the f32 rerank). The contract is gather_cols's, masks, scale modes and
+// the f32 rerank). The contract is gather_body's, masks, scale modes and
 // layout included; only which CTA computes which output slot changes.
 //
-// Why: gather_cols runs one CTA per (query, GROUP columns), so a block that
+// Why: gather_body runs one CTA per (query, column), so a block that
 // q queries select is read from device memory q times. The IVF's probed
 // clusters are shared by many queries (nprobe 32, Q 256: 81,920 (query,
 // block) pairs over 10,240 distinct blocks), so the per-query walk moves
@@ -242,28 +270,27 @@ gather_cols_f32(unsigned char* smem, const float* __restrict__ q,
 // distinct block once, plus the [Q, KB*128] output.
 //
 // Bits: each slot is computed by the arithmetic the per-query kernel uses.
-// bf16/int8: mma_rows with the query in N slot qi % 8 of its n-tile; the
-// CSR keeps a block's slots in eight lists, one per residue qi % 8, and
-// n-tile t takes the t-th slot of each residue list (zeros where a list is
-// shorter), so each (row, query) pair meets the tensor core in the N slot
-// and K order it has in the per-query kernel and in phase A. f32: the same
-// FFMA chain, k = 0..127 in order from zero, with the query in shared
-// memory. Which CTA takes which block, and the order of the slots inside a
-// list, come from atomics and may change from run to run; the output does
-// not.
+// bf16/int8: score_issue with the query in N slot qi % 8 of its n8 chunk;
+// the CSR keeps a block's slots in eight lists, one per residue qi % 8, and
+// n8 chunk t of a pass takes the t-th slot of each residue list (zeros
+// where a list is shorter), so each (row, query) pair meets the tensor core
+// in the N slot and K order it has in the per-query kernel and in phase A
+// (the 16-wide tile holds two chunks: wgmma m64n16). f32: the same FFMA
+// chain, k = 0..127 in order from zero, with the query in shared memory.
+// Which CTA takes which block, and the order of the slots inside a list,
+// come from atomics and may change from run to run; the output does not.
 //
 // Design: one CTA a distinct block (and one per 64 slots for the padding
-// list, which a mesh shard's probe fills mostly), with
-// no ring: the block's cp.async copies are in flight while the CTA loads
-// its list offsets and stages its slots (list entry, query cap, scale) in
-// shared memory, so the chain of dependent loads before the dot is short
-// (block id, offsets, slots, query fragments), and the CTAs resident on an
-// SM overlap one another's chains and loads. bf16/int8 score two n-tiles
-// (16 slots) a pass, which keeps registers low enough for five (bf16) or
-// six (int8) CTAs an SM; the f32 body (70 KB a block) fits three.
+// list, which a mesh shard's probe fills mostly), with no ring: the block's
+// TMA load is in flight while the CTA loads its list offsets and stages its
+// slots (list entry, query cap, scale) and their queries' B tile in shared
+// memory, so the chain of dependent loads before the dot is short (block
+// id, offsets, slots, queries), and the CTAs resident on an SM overlap one
+// another's chains and loads. bf16/int8 score two n8 chunks (16 slots) a
+// pass; the f32 body (70 KB a block) fits three CTAs an SM.
 
 constexpr int RES = 8;     // residue classes of the query index: its N slot
-constexpr int BB_NT = 2;   // n-tiles a pass of the bf16/int8 body (16 slots)
+constexpr int BB_NT = 2;   // n8 chunks a pass of the bf16/int8 body (16 slots)
 constexpr int BB_NQ = 4;   // slots a pass of the f32 body (one float4 a thread to stage)
 // CTAs an SM the bf16/int8 kernel is built for (its launch bound)
 template <class T>
@@ -284,7 +311,7 @@ struct ByBlock {
 };
 
 // One slot of a pass, staged in shared memory after the block: entry
-// r * BB_NT + j is the (t0 + j)-th slot of residue list r (n-tile t0 + j, N
+// r * BB_NT + j is the (t0 + j)-th slot of residue list r (n8 chunk j, N
 // slot r), sel = its flat entry q*KB + c (-1 where the list is shorter),
 // with qcap[q] and scale_sel[sel].
 struct BBMeta {
@@ -292,13 +319,23 @@ struct BBMeta {
   float qc, ss;
 };
 
+// Byte offsets of the bf16/int8 body's shared memory (after align_smem):
+// the block (1024-aligned), the pass's B tile (16 rows), the block's tl
+// values, the pass's slots, the barrier.
 template <class T>
-size_t by_block_smem() {
-  return (size_t)Slot<T>::BYTES + RES * BB_NT * sizeof(BBMeta);
-}
+struct ByBlockSmem {
+  static constexpr int BT = Slot<T>::BYTES;
+  static constexpr int TL = BT + RES * BB_NT * Slot<T>::ROWB;
+  static constexpr int META = TL + TL_BYTES;
+  static constexpr int BAR = round_up(META + RES * BB_NT * (int)sizeof(BBMeta), 8);
+  static constexpr int BYTES = BAR + 8;
+  static constexpr int LAUNCH = BYTES + SW_PERIOD;
+  static_assert(TL % 16 == 0 && BAR % 8 == 0, "ByBlockSmem alignment");
+  static_assert(BB_CTAS<T> * (LAUNCH + SMEM_RESERVED) <= SMEM_SM, "the launch bound's CTAs");
+};
 
 inline size_t by_block_f32_smem() {
-  return (size_t)Slot<F32>::BYTES + BB_NQ * DIM * sizeof(float);
+  return (size_t)F32Slot::BYTES + BB_NQ * DIM * sizeof(float);
 }
 
 // NEG_CAP in every row of the padding list's slots j = first, += step
@@ -333,29 +370,37 @@ __device__ __forceinline__ void by_block_meta(BBMeta* __restrict__ meta,
 }
 
 // bf16/int8: GTHREADS threads; CTA blockIdx.x < nd stages block
-// dist[blockIdx.x] once and scores it against every slot of its lists,
-// BB_NT n-tiles a pass (warp w: m-tiles 2w and 2w+1); the CTAs past nd
-// share the padding list. The block's copies are in flight while its list
-// offsets, per-row scales and pass 0's slots load. Needs by_block_smem<T>()
-// bytes at `smem`.
+// dist[blockIdx.x] once (TMA, through the DB's tensor map) and scores it
+// against every slot of its lists, BB_NT n8 chunks a pass (row 8j + r of the
+// pass's B tile: residue list r's slot of chunk j); the CTAs past nd share
+// the padding list. The block's load is in flight while its list offsets,
+// per-row scales, pass 0's slots and their queries load. Needs
+// ByBlockSmem<T>::LAUNCH bytes at `smem_raw`.
 template <class T>
 __device__ __forceinline__ void
-gather_by_block(unsigned char* smem, const typename T::In* __restrict__ q,
-                const typename T::In* __restrict__ db, const float* __restrict__ tl,
+gather_by_block(unsigned char* smem_raw, const CUtensorMap& map,
+                const typename T::In* __restrict__ q, const float* __restrict__ tl,
                 const float* __restrict__ qcap, const float* __restrict__ scale_sel,
                 const float* __restrict__ scales, float* __restrict__ out, int kb,
                 long long n_valid, const ByBlock& cs) {
+  using L = ByBlockSmem<T>;
+  constexpr int CH = Slot<T>::CHUNKS, NB = RES * BB_NT;  // B tile rows
   const int nd = cs.hdr[0];
   if ((int)blockIdx.x >= nd) {
     by_block_padding(out, cs, (int)blockIdx.x - nd, (int)gridDim.x - nd);
     return;
   }
+  unsigned char* smem = align_smem(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const float* tlb = reinterpret_cast<const float*>(smem + L::TL);
+  BBMeta* meta = reinterpret_cast<BBMeta*>(smem + L::META);
   const int b = cs.dist[blockIdx.x];
-  load_block<T>(smem, db, tl, b);
-  cp_async_commit();
-  BBMeta* meta = reinterpret_cast<BBMeta*>(smem + Slot<T>::BYTES);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    load_block<T>(smem, reinterpret_cast<float*>(smem + L::TL), map, tl, b, bar);
+  }
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
   const int* ro = cs.off + b * (RES + 1);  // residue r: list[ro[r] .. ro[r + 1])
   int ntiles = 0;
   {
@@ -373,43 +418,44 @@ gather_by_block(unsigned char* smem, const typename T::In* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       rs[hm][e] = scales != nullptr
-                      ? scales[(long long)b * BLOCK + (2 * warp + hm) * 16 + g + 8 * e]
+                      ? scales[(long long)b * BLOCK + hm * HALF + warp * 16 + g + 8 * e]
                       : 1.f;
-  by_block_meta(meta, ro, cs, tl, qcap, scale_sel, kb, 0);
-  cp_async_wait<0>();
-  __syncthreads();  // the block has landed; pass 0's slots are staged
-  const float* tlb = reinterpret_cast<const float*>(smem + Slot<T>::TL);
+  const uint32_t a = smem_addr(smem), bt = smem_addr(smem + L::BT);
 
   for (int t0 = 0; t0 < ntiles; t0 += BB_NT) {
-    if (t0 > 0) {
-      __syncthreads();  // the last pass has read its slots
-      by_block_meta(meta, ro, cs, tl, qcap, scale_sel, kb, t0);
-      __syncthreads();
+    if (t0 > 0) bar_sync(1, GTHREADS);  // the last pass's wgmma and slot reads are done
+    by_block_meta(meta, ro, cs, tl, qcap, scale_sel, kb, t0);
+    bar_sync(1, GTHREADS);
+    for (int c = threadIdx.x; c < NB * CH; c += GTHREADS) {
+      const int row = c / CH, sel = meta[(row % RES) * BB_NT + row / RES].sel;
+      stage_row_chunk<T>(smem + L::BT, NB, row, c % CH,
+                         sel >= 0 ? q + (long long)(sel / kb) * DIM : nullptr);
     }
+    fence_async_smem();
+    bar_sync(1, GTHREADS);
+    mbar_wait(bar, 0);  // the block has landed (at once after the first pass)
     const int ntv = min(BB_NT, ntiles - t0);
-    uint32_t bfrag[BB_NT][T::KSTEPS][2];  // n-tile j, N slot g: residue g's slot
+    typename T::Acc acc[2][4 * BB_NT];
 #pragma unroll
-    for (int j = 0; j < BB_NT; ++j) {
-      const int sel = meta[g * BB_NT + j].sel;
-      load_query_frag<T>(bfrag[j], q, max(sel, 0) / kb, sel >= 0);
-    }
+    for (int hm = 0; hm < 2; ++hm)
+      score_issue<T, 8 * BB_NT>(acc[hm], a + hm * HALF * ATOM_B, Slot<T>::ATOM, bt, NB * ATOM_B);
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
 #pragma unroll
-    for (int hm = 0; hm < 2; ++hm) {
-      const int mt = 2 * warp + hm;
-      typename T::Acc acc[BB_NT][4];
-      mma_rows<T, BB_NT>(acc, smem + mt * 16 * Slot<T>::PITCH, bfrag, ntv);
+    for (int hm = 0; hm < 2; ++hm)
 #pragma unroll
-      for (int j = 0; j < BB_NT; ++j) {
+      for (int j = 0; j < BB_NT; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {  // C column 2 tig + h: residue 2 tig + h's slot
+        for (int h = 0; h < 2; ++h) {  // column 8j + 2 tig + h: residue 2 tig + h's slot
           const BBMeta m = meta[(2 * tig + h) * BB_NT + j];
           if (j >= ntv || m.sel < 0) continue;
           float* o = out + (long long)m.sel * BLOCK;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int r = mt * 16 + g + 8 * e;
+            const int r = hm * HALF + warp * 16 + g + 8 * e;
             const long long row = (long long)b * BLOCK + r;
-            float s = (float)acc[j][2 * e + h];
+            float s = (float)acc[hm][4 * j + 2 * e + h];
             bool keep = row < n_valid;
             if (tl != nullptr) keep = keep && tlb[r] <= m.qc;
             if (scale_sel != nullptr) s *= m.ss;
@@ -417,8 +463,6 @@ gather_by_block(unsigned char* smem, const typename T::In* __restrict__ q,
             o[r] = (keep && s == s) ? s : NEG_CAP;
           }
         }
-      }
-    }
   }
 }
 
@@ -433,14 +477,14 @@ gather_by_block_f32(unsigned char* smem, const float* __restrict__ q,
                     const float* __restrict__ qcap, const float* __restrict__ scale_sel,
                     const float* __restrict__ scales, float* __restrict__ out, int kb,
                     long long n_valid, const ByBlock& cs) {
-  using SL = Slot<F32>;
+  using SL = F32Slot;
   const int nd = cs.hdr[0];
   if ((int)blockIdx.x >= nd) {
     by_block_padding(out, cs, (int)blockIdx.x - nd, (int)gridDim.x - nd);
     return;
   }
   const int b = cs.dist[blockIdx.x];
-  load_block<F32>(smem, db, tl, b);
+  load_block_f32(smem, db, tl, b);
   cp_async_commit();
   const int lo = cs.off[b * (RES + 1)], hi = cs.off[b * (RES + 1) + RES];
   float* qs = reinterpret_cast<float*>(smem + SL::BYTES);

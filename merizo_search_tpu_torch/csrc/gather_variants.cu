@@ -17,10 +17,12 @@
 //                  0..31 the f32 sum, in block order, of the 32 words of
 //                  row 0 of each block (rounded: the words are large);
 //                  lanes 32..127 are 0. The same at every g.
-// `full` is phase C: each CTA runs gather.cuh's gather_cols over its G
-// columns, with a negative index clamped instead of padded, so its scores
-// are the production kernel's (mma_rows, scan_common.cuh). The query is an
-// argument; the TPU kernel captured it from a module global.
+// `full` is phase C: one CTA a (query, selected column), each running
+// gather.cuh's gather_body, the production kernel's body on its grid, with
+// a negative index clamped instead of padded, so its scores and its time
+// are the production kernel's (score_issue, scan_common.cuh). The query is an argument; the TPU kernel
+// captured it from a module global. The DB reaches every mode's kernel as
+// a tensor map (only `full` reads through it) and as a pointer.
 //
 // A TPU BlockSpec moves every whole block whatever the body reads; on a GPU
 // only the loads a kernel makes move bytes. So the three reduction modes
@@ -33,7 +35,7 @@
 // bytes, so the pair of times says whether wide loads pay for int8 phase C.
 //
 // Grid: one CTA of GTHREADS (128) threads per (query, group), as the TPU
-// grid (Q, KB/G). Bound on the H100: bytes, the selected blocks read once
+// grid (Q, KB/G); `full`: per (query, column), as phase C. Bound on the H100: bytes, the selected blocks read once
 // plus out written, over 3.35 TB/s.
 #include <climits>
 
@@ -45,15 +47,16 @@ enum VariantMode { DMA_ONLY = 0, CONCAT_ONLY = 1, FULL = 2, INT32VIEW = 3 };
 
 template <class T, int MODE>
 __global__ void __launch_bounds__(GTHREADS)
-gather_variant_kernel(const typename T::In* __restrict__ q,
+gather_variant_kernel(const __grid_constant__ CUtensorMap map,
+                      const typename T::In* __restrict__ q,
                       const typename T::In* __restrict__ db,
                       const int* __restrict__ bidx, float* __restrict__ out,
                       unsigned* __restrict__ sink, int kb, int g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int qi = blockIdx.x, c0 = blockIdx.y * g;
   if constexpr (MODE == FULL) {
-    gather_cols<T>(smem, q, db, nullptr, nullptr, bidx, nullptr, nullptr, out, kb,
-                   LLONG_MAX, qi, c0, c0 + g, false);
+    gather_body<T>(smem, map, q, nullptr, nullptr, bidx, nullptr, nullptr, out, kb, LLONG_MAX, qi,
+                   blockIdx.y, false);
   } else {
     constexpr int BYTES = BLOCK * DIM * (int)sizeof(typename T::In);  // a block
     __shared__ unsigned warp_xor[GTHREADS / 32];
@@ -96,27 +99,31 @@ gather_variant_kernel(const typename T::In* __restrict__ q,
 }
 
 template <class T, int MODE>
-cudaError_t launch_variant(const void* q, const void* db, const int* bidx, float* out,
-                           unsigned* sink, int nq, int kb, int g, cudaStream_t stream) {
-  if (g <= 0 || kb % g || kb / g > 65535) return cudaErrorInvalidValue;
-  const size_t smem = MODE == FULL ? gather_smem<T>() : 0;
+int launch_variant(const void* q, const void* db, int nb, const int* bidx, float* out,
+                   unsigned* sink, int nq, int kb, int g, cudaStream_t stream) {
+  if (g <= 0 || kb % g || (MODE == FULL ? kb : kb / g) > 65535) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int rc = db_tensor_map<T>(&map, db, (long long)nb * BLOCK);
+  if (rc != 0) return rc;
+  const size_t smem = MODE == FULL ? GatherSmem<T>::LAUNCH : 0;
   cudaError_t err = allow_smem(gather_variant_kernel<T, MODE>, smem);
   if (err != cudaSuccess) return err;
   using In = typename T::In;
-  gather_variant_kernel<T, MODE><<<dim3(nq, kb / g), GTHREADS, smem, stream>>>(
-      static_cast<const In*>(q), static_cast<const In*>(db), bidx, out, sink, kb, g);
+  const dim3 grid(nq, MODE == FULL ? kb : kb / g);
+  gather_variant_kernel<T, MODE><<<grid, GTHREADS, smem, stream>>>(
+      map, static_cast<const In*>(q), static_cast<const In*>(db), bidx, out, sink, kb, g);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t launch_variant_m(int mode, const void* q, const void* db, const int* bidx,
-                             float* out, unsigned* sink, int nq, int kb, int g,
-                             cudaStream_t s) {
+int launch_variant_m(int mode, const void* q, const void* db, int nb, const int* bidx,
+                     float* out, unsigned* sink, int nq, int kb, int g, cudaStream_t s) {
   switch (mode) {
-    case DMA_ONLY: return launch_variant<T, DMA_ONLY>(q, db, bidx, out, sink, nq, kb, g, s);
+    case DMA_ONLY:
+      return launch_variant<T, DMA_ONLY>(q, db, nb, bidx, out, sink, nq, kb, g, s);
     case CONCAT_ONLY:
-      return launch_variant<T, CONCAT_ONLY>(q, db, bidx, out, sink, nq, kb, g, s);
-    case FULL: return launch_variant<T, FULL>(q, db, bidx, out, sink, nq, kb, g, s);
+      return launch_variant<T, CONCAT_ONLY>(q, db, nb, bidx, out, sink, nq, kb, g, s);
+    case FULL: return launch_variant<T, FULL>(q, db, nb, bidx, out, sink, nq, kb, g, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -124,9 +131,10 @@ cudaError_t launch_variant_m(int mode, const void* q, const void* db, const int*
 }  // namespace mst
 
 // dtype: 0 = bf16, 1 = int8. mode: 0 dma_only, 1 concat_only, 2 full,
-// 3 int32view (int8 only). out [nq, kb/g, g, 128] f32, every entry written;
-// sink one uint32 preset to 0 (unused by full). kb % g == 0.
-extern "C" int mst_gather_variant(int dtype, int mode, const void* q, const void* db,
+// 3 int32view (int8 only). db: nb blocks. out [nq, kb/g, g, 128] f32, every
+// entry written; sink one uint32 preset to 0 (unused by full). kb % g == 0.
+// Returns 0, a cudaError_t, or mst::ERR_TMAP + the encode's CUresult.
+extern "C" int mst_gather_variant(int dtype, int mode, const void* q, const void* db, int nb,
                                   const void* bidx, void* out, void* sink, int nq,
                                   int kb, int g, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -134,8 +142,10 @@ extern "C" int mst_gather_variant(int dtype, int mode, const void* q, const void
   auto o = static_cast<float*>(out);
   auto k = static_cast<unsigned*>(sink);
   if (dtype == 1 && mode == mst::INT32VIEW)
-    return mst::launch_variant<mst::Int8, mst::INT32VIEW>(q, db, ib, o, k, nq, kb, g, s);
-  if (dtype == 0) return mst::launch_variant_m<mst::Bf16>(mode, q, db, ib, o, k, nq, kb, g, s);
-  if (dtype == 1) return mst::launch_variant_m<mst::Int8>(mode, q, db, ib, o, k, nq, kb, g, s);
+    return mst::launch_variant<mst::Int8, mst::INT32VIEW>(q, db, nb, ib, o, k, nq, kb, g, s);
+  if (dtype == 0)
+    return mst::launch_variant_m<mst::Bf16>(mode, q, db, nb, ib, o, k, nq, kb, g, s);
+  if (dtype == 1)
+    return mst::launch_variant_m<mst::Int8>(mode, q, db, nb, ib, o, k, nq, kb, g, s);
   return cudaErrorInvalidValue;
 }

@@ -12,17 +12,18 @@
 //           each) of score(q, slab start + j): the small output that kept
 //           the dot alive on the TPU.
 // mini_scan runs phase A's walk (blockmax.cuh `walk_blocks`: the same CTA
-// shape, query tile, resident grid, cp.async ring and scan_common.cuh's
-// tensor-core `mma_rows` for every score), so mini_scan "none", mini_scan
-// "reduce" and blockmax_scan differ only in the per-block epilogue, and
-// their differences split phase A's time: the dot, the block-max reduce,
-// and the scale, NEG_CAP floor and store. "reduce" runs phase A's own
-// epilogue (BlockMaxEpi) with a raw store at out[b / nbt, q, b % nbt].
-// "none" keeps one running max an accumulator element for the sink, in
+// of a TMA producer and two wgmma consumers, query tile, persistent grid,
+// ring and scan_common.cuh's `score_issue` for every score), so mini_scan
+// "none", mini_scan "reduce" and blockmax_scan differ only in the per-block
+// epilogue, and their differences split phase A's time: the dot, the
+// block-max reduce, and the scale, NEG_CAP floor and store. "reduce" runs
+// phase A's own epilogue (BlockMaxEpi) with a raw store at out[b / nbt, q,
+// b % nbt]. "none" keeps one running max a column a thread for the sink, in
 // registers for the whole walk, and sends the scores of rows 0..7 of each
-// slab-start block, from the warp that multiplies its m-tile 0, to their
-// step's output by atomicMax (HeadsEpi).
-//
+// slab-start block, from the consumer warp that holds them (warp 0 of the
+// consumer that takes the block, first half), to their step's output by
+// atomicMax (HeadsEpi).
+
 // stream_probe replaces `_probe_kernel` of tools/perf_hbm.py: for x int8
 // [n, d], o[r, c] = i + sum over steps s of x[s*tile + r, c] as f32, r < 8.
 //
@@ -36,10 +37,8 @@
 // Bounds on the H100: mini_scan reads the DB once (4 GiB of bf16 at 2^24
 // rows: 1.28 ms at 3.35 TB/s) and does 2*Q*N*128 operations (1.11 ms at
 // Q = 256 at the 989 TFLOP/s bf16 peak; half that in int8 at 1,979 TOP/s),
-// so bytes bound it. It issues the dot as phase A does, by mma.sync, which
-// does not reach the dense peak (that takes wgmma): its time beside phase
-// A's, not beside the bound, is what the probe is for. stream_probe is
-// bound by one read of x.
+// so bytes bound it; it issues the dot as phase A does (wgmma), so its time
+// beside phase A's is what the probe is for.
 // Design: a CTA's range of blocks may span steps (phase A's geometry is
 // blind to them). "reduce" stores by block and needs nothing for that; in
 // "none" a step's heads meet through atomicMax on an order-preserving
@@ -65,114 +64,110 @@ __device__ __forceinline__ int order_key(float f) {
 }
 
 // mini_scan "reduce"'s store: the raw block max at out[b / nbt, qi, b % nbt];
-// keeps the max of what the thread stored (its part of the sink).
+// finish hands the consumers' max of what they stored (the CTA's part of
+// the sink) to *sink.
 template <class T>
 struct RawStore {
   float* __restrict__ out;
   int nq, nbt;
-  float pmax = -INFINITY;
-  __device__ __forceinline__ RawStore(float* o, int nq_, int nbt_) : out(o), nq(nq_), nbt(nbt_) {}
-  __device__ __forceinline__ void put(int b, int qi, typename T::Acc m) {
+  float* buf;    // 8 floats of shared memory
+  float* sink;
+  __device__ __forceinline__ RawStore(float* o, int nq_, int nbt_, float* b, float* sk)
+      : out(o), nq(nq_), nbt(nbt_), buf(b), sink(sk) {}
+  __device__ __forceinline__ void prefetch(int) {}
+  __device__ __forceinline__ float put(int b, int qi, typename T::Acc m) {
     const float v = (float)m;
     out[((long long)(b / nbt) * nq + qi) * nbt + b % nbt] = v;
-    pmax = fmaxf(pmax, v);
+    return v;
   }
+  template <class Epi>
+  __device__ __forceinline__ void finish(Epi& epi) { consumers_max(epi.thread_max(), buf, sink); }
 };
 
 // mini_scan "none"'s epilogue. run: the max of every score of the thread's
-// columns (one max an accumulator element, in registers for the whole walk;
-// the sink). In the warp that multiplies m-tile 0 of a block that starts a
-// slab, the scores of the block's rows 0..7 (M slot g: acc[j][0..1],
-// columns tig*2 + 0..1 of n-tile j) go straight to keys [nsteps, nq, 8] by
-// atomicMax, into the block's own step: no head is held across blocks, so
-// a CTA's range may span steps.
-template <class T>
+// columns (one max a column, in registers for the whole walk; the sink). In
+// warp 0 of the block's consumer, the first half's accumulator holds rows
+// 0..7 of the block (row g: acc[4j + c], column j*8 + tig*2 + c); for a block that
+// starts a slab they go straight to keys [nsteps, nq, 8] by atomicMax, into
+// the block's own step: no head is held across blocks, so a CTA's range
+// may span steps.
+template <class T, int N>
 struct HeadsEpi {
   using Acc = typename T::Acc;
   const WalkPos& p;
   int* __restrict__ keys;
   int nq, nbt, slab_blocks;
+  float* buf;
+  float* sink;
   int head_step;     // the current block's step if it starts a slab, else -1
-  Acc run[4][2];
+  Acc run[N / 4];
 
-  __device__ __forceinline__ HeadsEpi(const WalkPos& pos, int* k, int nq_, int nbt_, int sb)
-      : p(pos), keys(k), nq(nq_), nbt(nbt_), slab_blocks(sb), head_step(-1) {
+  __device__ __forceinline__ HeadsEpi(const WalkPos& pos, int* k, int nq_, int nbt_, int sb,
+                                      float* b, float* sk)
+      : p(pos), keys(k), nq(nq_), nbt(nbt_), slab_blocks(sb), buf(b), sink(sk), head_step(-1) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (T::IS_INT) run[j][0] = run[j][1] = INT_MASKED;
-      else run[j][0] = run[j][1] = -INFINITY;
+    for (int j = 0; j < N / 4; ++j) {
+      if constexpr (T::IS_INT) run[j] = INT_MASKED;
+      else run[j] = -INFINITY;
     }
   }
 
-  __device__ __forceinline__ void begin_block(int b) {
+  __device__ __forceinline__ void begin_block(int b, const float*) {
     head_step = b % slab_blocks == 0 ? b / nbt : -1;
   }
 
-  __device__ __forceinline__ void tile(int mt, const Acc (&acc)[4][4], const unsigned char*) {
+  __device__ __forceinline__ void half(int h, const Acc (&acc)[N / 2]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if constexpr (T::IS_INT) run[j][c] = max(run[j][c], max(acc[j][c], acc[j][2 + c]));
-        else run[j][c] = fmaxf(run[j][c], fmaxf(acc[j][c], acc[j][2 + c]));
-      }
-    if (mt == 0 && head_step >= 0)
+      for (int c = 0; c < 2; ++c)
+        run[2 * j + c] = amax(run[2 * j + c], amax(acc[4 * j + c], acc[4 * j + 2 + c]));
+    if (h == 0 && p.warp == 0 && head_step >= 0)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int qi = p.qbase + j * 8 + p.tig * 2 + c;
+          const int qi = p.q0 + j * 8 + p.tig * 2 + c;
           if (qi < nq)
             atomicMax(keys + ((long long)head_step * nq + qi) * 8 + p.g,
-                      order_key((float)acc[j][c]));
+                      order_key((float)acc[4 * j + c]));
         }
   }
 
-  __device__ __forceinline__ void end_block(int) {}
-  __device__ __forceinline__ void after_block(int, int) {}
+  __device__ __forceinline__ void end_block(int, int) {}
 
-  // the thread's part of the sink: queries past nq (zero fragments) stay out
-  __device__ __forceinline__ float best() const {
+  // the consumers' max of run; queries past nq (zero rows) stay out
+  __device__ __forceinline__ void finish() {
     float v = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c)
-        if (p.qbase + j * 8 + p.tig * 2 + c < nq) v = fmaxf(v, (float)run[j][c]);
-    return v;
+        if (p.q0 + j * 8 + p.tig * 2 + c < nq) v = fmaxf(v, (float)run[2 * j + c]);
+    consumers_max(v, buf, sink);
   }
 };
 
 // One CTA of phase A's grid (blockmax.cu's geometry: query tiles x chunks
-// of blocks_per_cta blocks over the nb = nsteps * nbt blocks).
-template <class T, bool REDUCE>
-__global__ void __launch_bounds__(THREADS, T::CTAS)
-mini_scan_kernel(const typename T::In* __restrict__ q,
-                 const typename T::In* __restrict__ db, float* __restrict__ out,
-                 float* __restrict__ sink, int nq, int nb, int nbt, int slab_blocks,
-                 int qgroups, int blocks_per_cta) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float warp_best[THREADS / 32];
-  const WalkPos p(nq, nb, qgroups, blocks_per_cta, blockIdx.x, blockIdx.y);
-  float best;
+// of blocks_per_cta blocks over the nb = nsteps * nbt blocks); the sink of
+// CTA (x, y) is sink[y * gridDim.x + x].
+template <class T, int N, bool REDUCE>
+__global__ void __launch_bounds__(THREADS, 1)
+mini_scan_kernel(const __grid_constant__ CUtensorMap map, const typename T::In* __restrict__ q,
+                 float* __restrict__ out, float* __restrict__ sink, int nq, int nb, int nbt,
+                 int slab_blocks, int blocks_per_cta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float warp_best[4 * CONSUMERS];
+  unsigned char* smem = align_smem(smem_raw);
+  const WalkPos p(nb, N, blocks_per_cta, blockIdx.x, blockIdx.y);
+  float* sk = sink + (long long)blockIdx.y * gridDim.x + blockIdx.x;
   if constexpr (REDUCE) {
-    RawStore<T> store(out, nq, nbt);
-    BlockMaxEpi<T, false, RawStore<T>> epi(p, store, smem, nullptr, nq);
-    walk_blocks<T, false>(smem, p, q, db, nullptr, nq, epi);
-    best = store.pmax;
+    RawStore<T> store(out, nq, nbt, warp_best, sk);
+    BlockMaxEpi<T, N, false, RawStore<T>> epi(p, store, smem, nq);
+    walk_blocks<T, N, false>(smem, p, map, q, nullptr, nullptr, nq, epi);
   } else {
-    HeadsEpi<T> epi(p, reinterpret_cast<int*>(out), nq, nbt, slab_blocks);
-    walk_blocks<T, false>(smem, p, q, db, nullptr, nq, epi);
-    best = epi.best();
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < THREADS / 32; ++w) best = fmaxf(best, warp_best[w]);
-    sink[(long long)blockIdx.y * gridDim.x + blockIdx.x] = best;
+    HeadsEpi<T, N> epi(p, reinterpret_cast<int*>(out), nq, nbt, slab_blocks, warp_best, sk);
+    walk_blocks<T, N, false>(smem, p, map, q, nullptr, nullptr, nq, epi);
   }
 }
 
@@ -207,55 +202,59 @@ stream_probe_kernel(const int8_t* __restrict__ x, float* __restrict__ o,
   }
 }
 
-template <class T, bool REDUCE>
-cudaError_t launch_mini(const void* q, const void* db, float* out, float* sink, int nq,
-                        int nb, int nbt, int slab_blocks, int qgroups, int blocks_per_cta,
-                        cudaStream_t stream) {
-  const size_t smem = blockmax_smem<T>();
-  cudaError_t err = allow_smem(mini_scan_kernel<T, REDUCE>, smem);
+template <class T, int N, bool REDUCE>
+int launch_mini(const CUtensorMap& map, const void* q, float* out, float* sink, int nq, int nb,
+                int nbt, int slab_blocks, int blocks_per_cta, cudaStream_t stream) {
+  const size_t smem = WalkSmem<T, N>::LAUNCH;
+  cudaError_t err = allow_smem(mini_scan_kernel<T, N, REDUCE>, smem);
   if (err != cudaSuccess) return err;
-  const int qt = QG * qgroups;
-  dim3 grid((nq + qt - 1) / qt, (nb + blocks_per_cta - 1) / blocks_per_cta);
-  mini_scan_kernel<T, REDUCE><<<grid, THREADS, smem, stream>>>(
-      static_cast<const typename T::In*>(q), static_cast<const typename T::In*>(db), out,
-      sink, nq, nb, nbt, slab_blocks, qgroups, blocks_per_cta);
+  dim3 grid((nq + N - 1) / N, (nb + blocks_per_cta - 1) / blocks_per_cta);
+  mini_scan_kernel<T, N, REDUCE><<<grid, THREADS, smem, stream>>>(
+      map, static_cast<const typename T::In*>(q), out, sink, nq, nb, nbt, slab_blocks,
+      blocks_per_cta);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t launch_mini_scan(const void* q, const void* db, float* out, float* sink, int nq,
-                             int nsteps, int nbt, int slab_blocks, int reduce, int qgroups,
-                             int blocks_per_cta, cudaStream_t s) {
-  if (qgroups != 1 && qgroups != 2 && qgroups != 4 && qgroups != 8)
-    return cudaErrorInvalidValue;
+int launch_mini_scan(const void* q, const void* db, float* out, float* sink, int nq, int nsteps,
+                     int nbt, int slab_blocks, int reduce, int tile, int blocks_per_cta,
+                     cudaStream_t s) {
   const long long nb = (long long)nsteps * nbt;
-  if (nbt < 1 || slab_blocks < 1 || nbt % slab_blocks || blocks_per_cta < 1 || nb > INT_MAX)
+  if (nq < 1 || nbt < 1 || slab_blocks < 1 || nbt % slab_blocks || blocks_per_cta < 1 ||
+      nb > INT_MAX)
     return cudaErrorInvalidValue;
-  if (reduce)
-    return launch_mini<T, true>(q, db, out, sink, nq, (int)nb, nbt, slab_blocks, qgroups,
-                                blocks_per_cta, s);
-  return launch_mini<T, false>(q, db, out, sink, nq, (int)nb, nbt, slab_blocks, qgroups,
-                               blocks_per_cta, s);
+  CUtensorMap map;
+  const int rc = db_tensor_map<T>(&map, db, nb * BLOCK);
+  if (rc != 0) return rc;
+  return by_tile(tile, [&](auto tw) {
+    constexpr int N = decltype(tw)::value;
+    if (reduce)
+      return launch_mini<T, N, true>(map, q, out, sink, nq, (int)nb, nbt, slab_blocks,
+                                     blocks_per_cta, s);
+    return launch_mini<T, N, false>(map, q, out, sink, nq, (int)nb, nbt, slab_blocks,
+                                    blocks_per_cta, s);
+  });
 }
 
 }  // namespace mst
 
 // dtype: 0 = bf16, 1 = int8. out: [nsteps, nq, nbt] (reduce) or int32 keys
 // [nsteps, nq, 8] preset to the key of -inf (none). sink: one float a CTA,
-// [ceil(nb / blocks_per_cta), ceil(nq / (32 * qgroups))] for nb = nsteps *
-// nbt. slab_blocks divides nbt; qgroups is 1, 2, 4 or 8.
+// [ceil(nb / blocks_per_cta), ceil(nq / tile)] for nb = nsteps * nbt.
+// slab_blocks divides nbt; tile (the query tile width) is 32, 64, 128 or
+// 256. Returns 0, a cudaError_t, or mst::ERR_TMAP + the encode's CUresult.
 extern "C" int mst_mini_scan(int dtype, const void* q, const void* db, void* out,
                              void* sink, int nq, int nsteps, int nbt, int slab_blocks,
-                             int reduce, int qgroups, int blocks_per_cta, void* stream) {
+                             int reduce, int tile, int blocks_per_cta, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<float*>(out);
   auto k = static_cast<float*>(sink);
   if (dtype == 0)
     return mst::launch_mini_scan<mst::Bf16>(q, db, o, k, nq, nsteps, nbt, slab_blocks,
-                                            reduce, qgroups, blocks_per_cta, s);
+                                            reduce, tile, blocks_per_cta, s);
   if (dtype == 1)
     return mst::launch_mini_scan<mst::Int8>(q, db, o, k, nq, nsteps, nbt, slab_blocks,
-                                            reduce, qgroups, blocks_per_cta, s);
+                                            reduce, tile, blocks_per_cta, s);
   return cudaErrorInvalidValue;
 }
 

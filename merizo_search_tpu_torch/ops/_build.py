@@ -88,7 +88,7 @@ def library() -> ctypes.CDLL:
                                           ci, ci, vp]
         lib.mst_gather_block_scores.restype = ci
         lib.mst_gather_block_scores.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
-                                                vp, ci, ci, ll, vp]
+                                                vp, ci, ci, ci, ll, vp]
         lib.mst_by_block_ws.restype = ll
         lib.mst_by_block_ws.argtypes = [ci, ll, vp]
         lib.mst_invert_blocks.restype = ci
@@ -108,7 +108,11 @@ def library() -> ctypes.CDLL:
         lib.mst_slab_scan.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci, ci,
                                       vp]
         lib.mst_gather_variant.restype = ci
-        lib.mst_gather_variant.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.mst_gather_variant.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp]
+        lib.mst_walk_layout.restype = ci
+        lib.mst_walk_layout.argtypes = [ci, ci, vp]
+        lib.mst_gather_layout.restype = ci
+        lib.mst_gather_layout.argtypes = [ci, vp]
         _lib = lib
         return _lib
 
@@ -132,6 +136,13 @@ def ptr(t, name: str, dtype, shape=None, device=None) -> int | None:
     return t.data_ptr()
 
 
+ERR_TMAP = 100_000   # launcher codes past this: ERR_TMAP + cuTensorMapEncodeTiled's CUresult
+
+
 def check_launch(rc: int, name: str) -> None:
+    """Raise for a launcher's nonzero return: a cudaError_t, or a failed
+    encode of the DB's TMA tensor map (csrc/scan_common.cuh db_tensor_map)."""
+    if rc >= ERR_TMAP:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult {rc - ERR_TMAP}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

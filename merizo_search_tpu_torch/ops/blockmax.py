@@ -5,7 +5,8 @@ tensors and runs `blockmax_plain`, the plain PyTorch version of the same
 contract, for CPU tensors. The kernel replaces the Pallas `_bm_kernel` of
 the JAX package; its header says what bounds it on the H100.
 `phase_a_geometry` sizes its launch: the query tile to the batch and a
-grid resident at once, each CTA walking a contiguous range of blocks.
+persistent grid of one CTA an SM, each walking a contiguous range of
+blocks; `walk_layout` reads the kernel's shared-memory layout.
 
 Contract (both versions), for q [Q, 128] and db [Npad, 128] of one dtype
 (bf16 or int8 for the kernel; the plain version also takes f32), Npad a
@@ -69,32 +70,51 @@ def blockmax_plain(q, db, n_valid: int, tl=None, qcap=None, scales=None):
     return torch.where(valid[None, :], torch.clamp(m, min=NEG_CAP), NEG_CAP)
 
 
-QUERY_GROUP = 32                                  # queries a warp holds (blockmax.cuh QG)
-CTAS_PER_SM = {torch.bfloat16: 2, torch.int8: 3}  # Traits::CTAS, csrc/scan_common.cuh
+TILE_WIDTHS = (32, 64, 128, 256)   # query tile widths N the kernels are built for
 
 
-def query_groups(nq: int) -> int:
-    """Query groups of 32 in a CTA's query tile (1, 2, 4 or 8): the fewest
-    that hold the batch, at most 256 queries a tile, so a small batch
-    multiplies no query columns of zeros beyond its last n-tile of 8."""
-    return next(g for g in (1, 2, 4, 8) if QUERY_GROUP * g >= min(nq, 256))
+def walk_layout(dtype, n: int) -> dict:
+    """Phase A's shared-memory layout for tile width n, read from the built
+    library (csrc/blockmax.cuh `WalkSmem`): the ring's stage count and slot
+    bytes, byte offsets of the query tile, the slots' tl values, the tile's
+    qcap values, the epilogue buffer and the barriers (the slots start at
+    0), the layout's bytes, and what a launch asks for (plus 1024 bytes of
+    alignment slack). Builds the library: needs nvcc."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_int * 9)()
+    _build.check_launch(_build.library().mst_walk_layout(_DTYPE_CODE[dtype], n, out),
+                        "walk_layout")
+    return dict(zip(("stages", "slot_bytes", "qt", "tl", "qcap", "red", "bar", "bytes",
+                     "launch"), out))
 
 
-def phase_a_geometry(nq: int, nb: int, sms: int, ctas_per_sm: int) -> tuple[int, int]:
-    """(qgroups, blocks_per_cta) of a phase-A launch: query tiles of
-    32 * qgroups queries, and about sms * ctas_per_sm CTAs in all (a grid
-    that is resident at once), each walking a contiguous range of
-    blocks_per_cta blocks, so each CTA loads its query fragments once."""
-    qg = query_groups(nq)
-    qtiles = -(-nq // (QUERY_GROUP * qg))
-    chunks = max(1, min(nb, sms * ctas_per_sm // qtiles))
-    return qg, -(-nb // chunks)
+def tile_width(nq: int) -> int:
+    """Phase A's query tile width N (32, 64, 128 or 256): the least that
+    holds the batch, at most 256 queries a tile, so a small batch
+    multiplies no query columns of zeros beyond the next power of two."""
+    return next(n for n in TILE_WIDTHS if n >= min(nq, 256))
+
+
+def phase_a_geometry(nq: int, nb: int, sms: int) -> tuple[int, int]:
+    """(N, blocks_per_cta) of a phase-A launch: query tiles of N =
+    tile_width(nq) queries and a persistent grid of about one CTA an SM
+    (the CTA's ring and query tile take most of an SM's shared memory),
+    each walking a contiguous range of blocks_per_cta blocks, so each CTA
+    stages its query tile once. More query tiles than SMs take one chunk
+    each, in waves."""
+    n = tile_width(nq)
+    qtiles = max(1, -(-nq // n))
+    chunks = max(1, min(nb, sms // qtiles))
+    return n, max(1, -(-nb // chunks))
 
 
 def launch_geometry(q, nb: int) -> tuple[int, int]:
     """phase_a_geometry for a CUDA tensor q's batch and card."""
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return phase_a_geometry(q.shape[0], nb, sms, CTAS_PER_SM[q.dtype])
+    return phase_a_geometry(q.shape[0], nb, sms)
 
 
 def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
@@ -117,7 +137,7 @@ def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
             _build.ptr(qcap, "qcap", torch.float32, (nq,), dev),
             _build.ptr(scales, "scales", torch.float32, (npad,), dev)]
     out = torch.empty((nq, nb), dtype=torch.float32, device=dev)
-    if nq == 0:
+    if nq == 0 or nb == 0:
         return out
     with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
         rc = _build.library().mst_blockmax_scan(

@@ -45,6 +45,21 @@ launches_by_block = 0       # block-major launches (gather_block_scores_by_block
 launches_by_block_f32 = 0   # of which in the f32 mode
 
 
+def gather_layout(dtype) -> dict:
+    """The shared-memory layout of the bf16/int8 per-query kernel's CTA (one
+    selected column), read from the built library (csrc/gather.cuh
+    `GatherSmem`): byte offsets of the query's 8-row B tile, the block's tl
+    values and its barrier (the block's slot starts at 0), the layout's
+    bytes, and what a launch asks for (plus 1024 bytes of alignment
+    slack). Builds the library: needs nvcc."""
+    from . import _build
+
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(_build.library().mst_gather_layout(_DTYPE_CODE[dtype], out),
+                        "gather_layout")
+    return dict(zip(("bt", "tl", "bar", "bytes", "launch"), out))
+
+
 def _validate(q, db, bidx, tl, qcap, scale_sel, scales):
     if q.dim() != 2 or db.dim() != 2 or q.shape[1] != 128 or db.shape[1] != 128:
         raise ValueError(f"q and db must be [*, 128], got {tuple(q.shape)}, {tuple(db.shape)}")
@@ -121,7 +136,8 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
         return out
     with torch.cuda.device(q.device):  # the launch and its smem attribute: q's card
         rc = _build.library().mst_gather_block_scores(
-            _GATHER_CODE[db.dtype], *args, out.data_ptr(), nq, kb, int(n_valid),
+            _GATHER_CODE[db.dtype], *args, out.data_ptr(), nq, kb, db.shape[0] // BLOCK,
+            int(n_valid),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(rc, "gather_block_scores")
     launches += 1

@@ -107,7 +107,7 @@ def gather_variant(q, db, bidx, mode: str, g: int = G):
     dev = q.device
     nq, kb = bidx.shape
     args = [_build.ptr(q, "q", db.dtype, device=dev),
-            _build.ptr(db, "db", db.dtype, device=dev),
+            _build.ptr(db, "db", db.dtype, device=dev), db.shape[0] // BLOCK,
             _build.ptr(bidx, "bidx", torch.int32, (nq, kb), dev)]
     out = torch.empty((nq, kb // g, g, BLOCK), dtype=torch.float32, device=dev)
     sink = torch.zeros((1,), dtype=torch.int32, device=dev)

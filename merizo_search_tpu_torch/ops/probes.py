@@ -7,9 +7,10 @@ probes of the JAX package's measurement tools: `_mini_kernel` of
 tools/perf_floor2.py and tools/perf_int8_floor.py (one function here, whose
 `tile` defaults to the latter's fixed 32768) and `_probe_kernel` of
 tools/perf_hbm.py. The tools in `merizo_search_tpu_torch.tools` run them.
-mini_scan's kernel runs phase A's tensor-core walk at phase A's launch
-geometry (`geometry`), so its two modes and `blockmax_scan` differ only in
-what each does per block once the scores exist.
+mini_scan's kernel runs phase A's walk (TMA ring, wgmma consumers) at
+phase A's launch geometry (`geometry`), so its two modes and
+`blockmax_scan` differ only in what each does per block once the scores
+exist.
 
 Both return a sink beside their output: a value that depends on all of the
 probe's work, so that a GPU kernel (where a dot whose result is unused is
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .blockmax import _DTYPE_CODE, CTAS_PER_SM, QUERY_GROUP, phase_a_geometry
+from .blockmax import _DTYPE_CODE, phase_a_geometry
 from .topk import BLOCK
 
 TILE = 32768         # perf_int8_floor's fixed tile (the JAX DEFAULT_TILE)
@@ -32,18 +33,18 @@ PLAIN_STEPS = 1 << 20   # DB rows per piece of mini_scan_plain
 launches = {"mini_scan": 0, "stream_probe": 0}   # since the last reset
 
 
-def geometry(nq: int, nsteps: int, nbt: int, sms: int, ctas_per_sm: int):
-    """(qgroups, blocks_per_cta, chunks) of a mini_scan launch: phase A's
+def geometry(nq: int, nsteps: int, nbt: int, sms: int):
+    """(N, blocks_per_cta, chunks) of a mini_scan launch: phase A's
     (`phase_a_geometry`) over the nsteps * nbt blocks, so mini_scan walks
-    as phase A does: query tiles of 32 * qgroups queries and a grid of
-    query tiles x chunks resident at once, each CTA a contiguous range of
-    blocks_per_cta blocks. The ranges ignore the steps: one may span two or
-    more. "reduce" stores each block's maxima at its own step, and "none"
-    sends each slab-start block's head scores to its own step by
+    as phase A does: query tiles of N queries and a persistent grid of
+    query tiles x chunks, about one CTA an SM, each CTA a contiguous range
+    of blocks_per_cta blocks. The ranges ignore the steps: one may span two
+    or more. "reduce" stores each block's maxima at its own step, and
+    "none" sends each slab-start block's head scores to its own step by
     atomicMax, so neither holds anything across a step boundary."""
     nb = nsteps * nbt
-    qg, bpc = phase_a_geometry(nq, nb, sms, ctas_per_sm)
-    return qg, bpc, -(-nb // bpc)
+    n, bpc = phase_a_geometry(nq, nb, sms)
+    return n, bpc, -(-nb // bpc)
 
 
 def _validate_mini(q, db, tile, nslab, reduce_mode):
@@ -107,16 +108,15 @@ def _kernel_call(q, db, tile, nslab, reduce_mode):
     if nq == 0:
         return out, torch.full((1,), float("-inf"), device=dev), None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    qg, bpc, chunks = geometry(nq, nsteps, nbt, sms, CTAS_PER_SM[db.dtype])
-    parts = torch.empty((chunks, -(-nq // (QUERY_GROUP * qg))), dtype=torch.float32,
-                        device=dev)
+    n, bpc, chunks = geometry(nq, nsteps, nbt, sms)
+    parts = torch.empty((chunks, -(-nq // n)), dtype=torch.float32, device=dev)
     lib, stream = _build.library(), torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
         with torch.cuda.device(dev):   # the launch and its smem attribute: q's card
             rc = lib.mst_mini_scan(_DTYPE_CODE[db.dtype], *args, out.data_ptr(),
                                    parts.data_ptr(), nq, nsteps, nbt, (tile // nslab) // BLOCK,
-                                   int(reduce_mode == "reduce"), qg, bpc, stream)
+                                   int(reduce_mode == "reduce"), n, bpc, stream)
         _build.check_launch(rc, "mini_scan")
         launches["mini_scan"] += 1
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .blockmax import _DTYPE_CODE, blockmax_plain, query_groups
+from .blockmax import _DTYPE_CODE, blockmax_plain, tile_width
 from .topk import BLOCK
 
 TILE = 32768            # the JAX tool's default (the JAX DEFAULT_TILE)
@@ -95,7 +95,7 @@ def slab_scan(q, db, n_valid: int, tile: int = TILE, nslab: int = 2, scales=None
         rc = _build.library().mst_slab_scan(
             _DTYPE_CODE[db.dtype], nslab, *args, bm.data_ptr(),
             None if part is None else part.data_ptr(), nq, npad // BLOCK, int(n_valid),
-            query_groups(nq), tile // BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+            tile_width(nq), tile // BLOCK, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "slab_scan")
     launches += 1
     return bm, None if part is None else part.amax(dim=2)

@@ -4,7 +4,7 @@ the IVF's probe gather and rerank) on the CPU.
 - The plain inversion (`invert_plain`, what the card's counting sort builds)
   against a brute-force loop over bidx, on lists with padding, a block that
   every query selects, blocks that no query selects, ids past the DB, Q not
-  a multiple of 8 and KB not a multiple of the per-query kernel's GROUP.
+  a multiple of 8 and KB not a multiple of the per-query f32 kernel's GROUP.
 - The block-major entry against `gather_plain` (CPU tensors run it; equal
   arrays) in every dtype and scale mode, and against the JAX package's
   `gather_block_scores` in interpret mode (the function the JAX IVF runs
@@ -28,7 +28,11 @@ from merizo_search_tpu_torch.ops import gather, topk
 from merizo_search_tpu_torch.ops.fused_scan import selected_scales
 
 NEG_CAP = np.float32(-3.4e38)
-GROUP = 4   # csrc/gather.cuh: selected columns per CTA of the per-query kernel
+# csrc/gather.cuh F32_GROUP: selected columns a CTA of the per-query f32
+# kernel (the bf16/int8 per-query kernel takes one column a CTA, so any KB
+# fits it; a KB that is no multiple of 4 still leaves the f32 grid a partial
+# last group, and the inversion's lists odd lengths)
+GROUP = 4
 
 
 def _brute_inversion(bidx, nb):

@@ -210,13 +210,12 @@ def test_mini_scan_kernel_alone_launches_the_kernel(cuda, data, mode):
     assert probes.launches["mini_scan"] == n0 + 2
 
 
-def _steps_for_span(nq, dtype, span):
+def _steps_for_span(nq, span):
     """The fewest steps of tile 1024 (8 blocks) at which one of the card's
     mini_scan CTA ranges touches `span` steps."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ctas = blockmax.CTAS_PER_SM[torch.int8 if dtype == "int8" else torch.bfloat16]
     for nsteps in range(2, 4096):
-        _, bpc, _ = probes.geometry(nq, nsteps, 8, sms, ctas)
+        _, bpc, _ = probes.geometry(nq, nsteps, 8, sms)
         nb = nsteps * 8
         if max((min(nb, b0 + bpc) - 1) // 8 - b0 // 8 + 1 for b0 in range(0, nb, bpc)) >= span:
             return nsteps
@@ -232,7 +231,7 @@ def test_mini_scan_kernel_ranges_across_steps(cuda, data, dtype, mode, nq, span)
     steps of 8 blocks (a range's "none" heads go to several steps); the
     plain version runs on the card (float64)."""
     q, db, _ = data[dtype]
-    nsteps = _steps_for_span(nq, dtype, span)
+    nsteps = _steps_for_span(nq, span)
     q = q.repeat(5, 1)[:nq].contiguous().to(cuda)
     db = db.to(cuda).repeat(-(-nsteps * 1024 // db.shape[0]), 1)[:nsteps * 1024].contiguous()
     got, sink = probes.mini_scan(q, db, 1024, 2, mode)
@@ -388,3 +387,118 @@ def test_cover_invariant_on_card(cuda, odd, dtype, use_len, nq):
     torch.cuda.synchronize()
     compared, differ = cover_check(bm, scores, bidx, n)
     assert compared >= nq * 20 and differ == 0
+
+
+# Phase A's walk on Hopper (TMA ring, wgmma consumers) at its edges: every
+# tile width the geometry picks (Q 1 and 7 -> N 32, 33 -> 64, 100 -> 128,
+# 255 -> 256, 257 -> two tiles of 256, the second with one query), ragged
+# n_valid, fewer blocks than CTAs and CTAs whose whole range lies past
+# n_valid; each BM against the plain version and held to the cover
+# invariant, bit for bit.
+EDGE_Q = [1, 7, 33, 100, 255, 257]
+
+
+def test_edge_batches_take_every_tile_width():
+    assert {blockmax.tile_width(nq) for nq in EDGE_Q} == set(blockmax.TILE_WIDTHS)
+
+
+def _bm_and_cover(q, db, sc, n, lk, k=20):
+    bm = blockmax.blockmax_scan(q, db, n, *lk, sc)
+    torch.cuda.synchronize()
+    want = blockmax.blockmax_plain(q, db, n, *lk, sc)
+    assert bool(torch.isfinite(bm).all())
+    if n == 0:                  # every block past n_valid: NEG_CAP, nothing to compare
+        assert torch.equal(bm.cpu(), want.cpu()) and bool((bm <= NEG_CAP).all())
+        return bm
+    _compare(bm, want, sc is not None)
+    bidx = select_blocks(bm, n, k)
+    kw = {} if sc is None else {"scale_sel": selected_scales(sc, bidx)}
+    scores = gather.gather_block_scores(q, db, bidx, n, *lk, **kw)
+    torch.cuda.synchronize()
+    _compare(scores, gather.gather_plain(q, db, bidx, n, *lk, **kw), sc is not None)
+    compared, differ = cover_check(bm, scores, bidx, n)
+    assert compared > 0 and differ == 0
+    return bm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("use_len", [False, True])
+@pytest.mark.parametrize("nq", EDGE_Q)
+def test_walk_edges_at_every_tile_width(cuda, odd, dtype, use_len, nq):
+    q, db, sc = _on(cuda, *odd[dtype])
+    q = q[:nq].contiguous()
+    lk = _on(cuda, odd["tl"], odd["qlen"][:nq].contiguous()) if use_len else (None, None)
+    _bm_and_cover(q, db, sc, odd["n"], lk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n_valid", [6350, 300, 0])
+@pytest.mark.parametrize("nq", [7, 257])
+def test_walk_with_fewer_blocks_than_ctas(cuda, odd, dtype, n_valid, nq):
+    """50 blocks against one CTA an SM: one block a CTA. n_valid 6,350 ends
+    mid-block; at 300 all but three blocks, so the ranges of most CTAs, lie
+    past it (NEG_CAP); at 0 every block does."""
+    q, db, sc = _on(cuda, *odd[dtype])
+    db, sc = db[:6400].contiguous(), None if sc is None else sc[:6400].contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert blockmax.phase_a_geometry(nq, 50, sms)[1] == 1
+    _bm_and_cover(q[:nq].contiguous(), db, sc, n_valid, (None, None), k=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("nq", [7, 33, 100, 257])
+def test_bm_gather_at_every_tile_width_equals_two_launches(cuda, odd, dtype, nq):
+    """The pipelined kernel (both roles in one grid) against phase A then
+    phase C launched alone, bit for bit, at each tile width."""
+    q, db, sc = _on(cuda, *odd[dtype])
+    q = q[:nq].contiguous()
+    n = odd["n"]
+    bidx = select_blocks(blockmax.blockmax_scan(q, db, n, scales=sc), n, 9)
+    bidx[::4, 2] = -1
+    pv_q = q.flip(0).contiguous()
+    ss = None if sc is None else selected_scales(sc, bidx)
+    bm, prev = pipelined.blockmax_scan_gather(q, db, n, pv_q, bidx, sc, ss)
+    torch.cuda.synchronize()
+    assert torch.equal(bm, blockmax.blockmax_scan(q, db, n, scales=sc))
+    kw = {} if ss is None else {"scale_sel": ss}
+    assert torch.equal(prev, gather.gather_block_scores(pv_q, db, bidx, n, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("nq", [7, 33, 257])
+def test_slab_scan_equals_blockmax_at_every_tile_width(cuda, data, dtype, nq):
+    q, db, sc = data[dtype]
+    q = q.repeat(4, 1)[:nq].contiguous()
+    pad = 10 * 2048 - db.shape[0]
+    db = torch.cat([db, db.new_zeros((pad, 128))])
+    sc = None if sc is None else torch.cat([sc, sc.new_ones(pad)])
+    q, db, sc = _on(cuda, q, db, sc)
+    bm, sbm = slab_interleave.slab_scan(q, db, data["n"], 2048, 4, sc)
+    bm0 = blockmax.blockmax_scan(q, db, data["n"], scales=sc)
+    torch.cuda.synchronize()
+    assert torch.equal(bm, bm0)
+    assert torch.equal(sbm, bm0.view(nq, 10, 16).amax(dim=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_built_layouts_fit_the_card(cuda, dtype):
+    """The shared memory the built kernels ask for, read from the library
+    (the constants their launchers use): phase A's at every tile width fits
+    one CTA on this card, its slots and query tile on the 1024-byte swizzle
+    period; six phase-C CTAs fit an SM."""
+    props = torch.cuda.get_device_properties(cuda)
+    per_cta = getattr(props, "shared_memory_per_block_optin", 232_448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233_472)
+    for n in blockmax.TILE_WIDTHS:
+        lay = blockmax.walk_layout(dtype, n)
+        assert lay["launch"] <= per_cta and lay["stages"] >= 4
+        assert lay["slot_bytes"] % 1024 == 0 and lay["qt"] % 1024 == 0
+        assert lay["qt"] == lay["stages"] * lay["slot_bytes"]
+        assert lay["tl"] % 16 == 0 and lay["qcap"] % 16 == 0 and lay["bar"] % 8 == 0
+    lay = gather.gather_layout(dtype)
+    assert 6 * (lay["launch"] + 1024) <= per_sm and lay["bt"] % 1024 == 0

@@ -127,39 +127,39 @@ def _spans(nb, nbt, bpc):
     return [(min(nb, b0 + bpc) - 1) // nbt - b0 // nbt + 1 for b0 in range(0, nb, bpc)]
 
 
-@pytest.mark.parametrize("nq, nsteps, nbt, qgroups, qtiles", [
-    (40, 512, 256, 2, 1),        # 2^24 rows, tile 32768
-    (300, 512, 256, 8, 2),
-    (256, 512, 256, 8, 1),
-    (32, 1, 3907, 1, 1),         # 500,096 rows as one step
-    (70, 19, 8, 4, 1),           # tile 1024
-    (300, 40, 8, 8, 2),
+@pytest.mark.parametrize("nq, nsteps, nbt, n, qtiles", [
+    (40, 512, 256, 64, 1),       # 2^24 rows, tile 32768
+    (300, 512, 256, 256, 2),
+    (256, 512, 256, 256, 1),
+    (32, 1, 3907, 32, 1),        # 500,096 rows as one step
+    (70, 19, 8, 128, 1),         # tile 1024
+    (300, 40, 8, 256, 2),
 ])
-@pytest.mark.parametrize("ctas", [2, 3])
-def test_mini_scan_geometry_is_phase_a_geometry(nq, nsteps, nbt, qgroups, qtiles, ctas):
+@pytest.mark.parametrize("sms", [132, 114])
+def test_mini_scan_geometry_is_phase_a_geometry(nq, nsteps, nbt, n, qtiles, sms):
     """mini_scan launches as phase A does over nsteps * nbt blocks: query
-    tiles of 32 * qgroups queries (Q not a multiple of 32 rounds up), each
-    block in exactly one CTA range, the grid resident at once on 132 SMs."""
+    tiles of N queries (Q not a multiple of N rounds up), each block in
+    exactly one CTA range, at most one CTA an SM (132 or 114 of them)."""
     from merizo_search_tpu_torch.ops.blockmax import phase_a_geometry
 
     nb = nsteps * nbt
-    qg, bpc, chunks = probes.geometry(nq, nsteps, nbt, 132, ctas)
-    assert (qg, bpc) == phase_a_geometry(nq, nb, 132, ctas)
-    assert qg == qgroups and -(-nq // (32 * qg)) == qtiles
+    tw, bpc, chunks = probes.geometry(nq, nsteps, nbt, sms)
+    assert (tw, bpc) == phase_a_geometry(nq, nb, sms)
+    assert tw == n and -(-nq // tw) == qtiles
     assert (chunks - 1) * bpc < nb <= chunks * bpc
-    assert qtiles * chunks <= 132 * ctas
+    assert qtiles * chunks <= sms
 
 
 def test_mini_scan_ranges_span_steps_at_the_probe_shape():
     """At 2^24 rows, tile 32768, Q 256 the ranges ignore the 256-block
-    steps: a bf16 CTA walks 497 blocks, touching 2 or 3 steps, so the
-    "none" heads one CTA sends belong to several steps."""
+    steps: a CTA (one an SM) walks 993 blocks, touching 4 or 5 steps, so
+    the "none" heads one CTA sends belong to several steps."""
     nb, nbt = 512 * 256, 256
-    _, bpc, chunks = probes.geometry(256, 512, nbt, 132, 2)
-    assert bpc == 497 and chunks == 264
-    assert set(_spans(nb, nbt, bpc)) == {2, 3}
-    _, bpc8, _ = probes.geometry(256, 512, nbt, 132, 3)     # int8: 3 CTAs an SM
-    assert bpc8 == 331 and max(_spans(nb, nbt, bpc8)) == 3
+    _, bpc, chunks = probes.geometry(256, 512, nbt, 132)
+    assert bpc == 993 and chunks == 132
+    assert set(_spans(nb, nbt, bpc)) == {4, 5}
+    _, bpc114, _ = probes.geometry(256, 512, nbt, 114)      # a card of 114 SMs
+    assert bpc114 == 1150 and max(_spans(nb, nbt, bpc114)) == 6
 
 
 def _walk_heads(scores, tile, nslab, bpc):
@@ -183,12 +183,12 @@ def _walk_heads(scores, tile, nslab, bpc):
 @pytest.mark.parametrize("sms", [3, 1])
 def test_mini_scan_none_heads_across_steps_match_jax(dtype, sms):
     """Q = 40, tile 1024 (8 blocks a step), nslab 2, five steps, on a card
-    of `sms` SMs: CTA ranges of 7 (3 SMs) or 20 blocks (1 SM) span two or
+    of `sms` SMs: CTA ranges of 14 (3 SMs) or 40 blocks (1 SM) span two or
     more steps. The heads as the walk meets them, block by block into each
     block's own step, equal the JAX mini_scan in interpret mode, and so does
     the port's mini_scan."""
     q, db = _data(dtype, 5 * 1024, q=40, seed=5)
-    _, bpc, _ = probes.geometry(40, 5, 8, sms, 2)
+    _, bpc, _ = probes.geometry(40, 5, 8, sms)
     assert max(_spans(40, 8, bpc)) >= 2
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax_floor2.mini_scan(jnp.asarray(q), jnp.asarray(db), 1024, 2, "none"))
@@ -209,7 +209,7 @@ def test_mini_scan_odd_batch_matches_numpy(mode):
     if mode == "reduce":
         want = s.reshape(300, 6, 8, 128).max(axis=3).transpose(1, 0, 2)
     else:
-        _, bpc, _ = probes.geometry(300, 6, 8, 132, 3)
+        _, bpc, _ = probes.geometry(300, 6, 8, 132)
         want = _walk_heads(s, 1024, 4, bpc)
         np.testing.assert_array_equal(
             want, s.reshape(300, 6, 4, 256)[..., :8].max(axis=2).transpose(1, 0, 2))
