@@ -28,8 +28,14 @@ server) on the card and checks them:
             (tools/perf_pipelined: 2^24 rows, Q = 64 and 256, k = 100, bf16
             and int8): equal to the sequential fused_topk exactly on 3
             batches plus a drain, and its per-batch time beside the
-            sequential one; then its kernel (bm_gather) against its plain
-            version at N = 500,000 and at 2^24 rows, timed there.
+            sequential one; then its kernel (bm_gather: one pass over the
+            DB that scores the previous selection on phase A's ring slots,
+            after inverting it block-major) against phase A then phase C
+            launched apart (bit for bit) and against its plain version, at
+            N = 500,000 and at 2^24 rows (the top-101 selection and a hot
+            one: every previous query selecting the same blocks), timed
+            there with the inversion alone, the two launches apart and
+            phase A alone.
 7. probes   the scan's floor probes through their tools (tools/perf_hbm,
             perf_int8_floor, perf_floor2 at 2^24 rows, Q = 256, and
             perf_floor2 at 500,096 rows, Q = 32): the read rate, the dot
@@ -506,7 +512,7 @@ def reset_counts():
 
     blockmax.launches = gather.launches = gather.launches_f32 = 0
     gather.launches_by_block = gather.launches_by_block_f32 = 0
-    pipelined.launches = slab_interleave.launches = 0
+    pipelined.launches = pipelined.inversions = slab_interleave.launches = 0
     for counts in (probes.launches, gather_variants.launches):
         for name in counts:
             counts[name] = 0
@@ -520,54 +526,62 @@ def launch_counts():
             "gather_block_scores.f32": gather.launches_f32,
             "gather_block_scores_by_block": gather.launches_by_block,
             "gather_block_scores_by_block.f32": gather.launches_by_block_f32,
-            "blockmax_scan_gather": pipelined.launches, **probes.launches,
+            "blockmax_scan_gather": pipelined.launches,
+            "blockmax_scan_gather.inversion": pipelined.inversions, **probes.launches,
             "slab_scan": slab_interleave.launches,
             **{f"gather_variant.{m}": n for m, n in gather_variants.launches.items()}}
 
 
-def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100):
-    """Hold the pipelined kernel against its plain version on one batch and
-    the previous batch's top-(k+1) blocks (int8: with their carried block
-    scales, as fused_topk_step passes them), then time it, the plain version
-    and, as a labelled yardstick, the two sequential launches it replaces
-    (phase A, then phase C) on the same inputs."""
+def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100, hot=False):
+    """Hold the pipelined kernel against phase A then phase C launched apart
+    (bit for bit) and against its plain version, on one batch and the
+    previous batch's top-(k+1) blocks (int8: with their carried block
+    scales, as fused_topk_step passes them); with `hot`, every previous
+    query selects the first one's blocks (hot blocks: Qp entries each).
+    Then time it, the plain version, the inversion of the previous
+    selection alone, and as labelled yardsticks the two sequential launches
+    it replaces and itself with no previous selection (phase A alone)."""
     from merizo_search_tpu_torch.ops import blockmax, gather, pipelined
     from merizo_search_tpu_torch.ops.fused_scan import select_blocks, selected_scales
 
     pv_bidx = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, k)
+    if hot:
+        pv_bidx = pv_bidx[:1].expand_as(pv_bidx).contiguous()
     ss = None if sc is None else selected_scales(sc, pv_bidx)
     args = (q, db, n, pv_q, pv_bidx, sc, ss)
-    got = pipelined.blockmax_scan_gather(*args)
+    seq = lambda: (blockmax.blockmax_scan(q, db, n, scales=sc),
+                   gather.gather_block_scores(pv_q, db, pv_bidx, n, scale_sel=ss))
+    got, apart = pipelined.blockmax_scan_gather(*args), seq()
     torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, apart)),
+          f"bm_gather {dtype} differs from phase A then phase C launched apart")
+    del apart
     want = pipelined.blockmax_scan_gather_plain(*args)
     err = max(max_err(g, w, dtype == "int8", rel) for g, w in zip(got, want))
     del got, want
     ms = time_ms(lambda: pipelined.blockmax_scan_gather(*args), 5, flush)
     plain_ms = time_ms(lambda: pipelined.blockmax_scan_gather_plain(*args), 1, flush)
-    seq_ms = time_ms(lambda: (blockmax.blockmax_scan(q, db, n, scales=sc),
-                              gather.gather_block_scores(pv_q, db, pv_bidx, n, scale_sel=ss)),
-                     5, flush)
+    seq_ms = time_ms(seq, 5, flush)
+    nb = db.shape[0] // 128
+    inv_ms = time_ms(lambda: pipelined.invert_previous(pv_q, pv_bidx, nb, ss), 5, flush)
     # the fused launch with an empty previous selection runs phase A alone
     no_prev = pv_bidx.new_empty((pv_q.shape[0], 0))
     a_only_ms = time_ms(lambda: pipelined.blockmax_scan_gather(q, db, n, pv_q, no_prev, sc),
                         5, flush)
-    nq, nqp, kb = q.shape[0], pv_q.shape[0], pv_bidx.shape[1]
-    npad, isz = db.shape[0], db.element_size()
-    nb = npad // 128
-    nbytes = (npad * 128 * isz + (nq + nqp) * 128 * isz + pv_bidx.numel() * 4
-              + (nb * 4 + pv_bidx.numel() * 4 if sc is not None else 0)
-              + nq * nb * 4 + nqp * kb * 128 * 4)
-    ops = 2 * nq * npad * 128 + 2 * int((pv_bidx >= 0).sum()) * 128 * 128
-    b_ms, b_by = bound(nbytes, ops, dtype)
-    return {"dtype": dtype, "n": npad, "q": nq, "kb": kb, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "sequential_kernels_ms": seq_ms, "fused_phase_a_only_ms": a_only_ms}
+    b_ms, b_by = perf_scan.bm_gather_bound(q.shape[0], db.shape[0], db.element_size(),
+                                           pv_bidx, dtype, sc is not None)
+    return {"dtype": dtype, "n": db.shape[0], "q": q.shape[0], "kb": pv_bidx.shape[1],
+            "selection": "hot" if hot else "top", "max_abs_err": err,
+            "equal_to_two_launches": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "sequential_kernels_ms": seq_ms,
+            "fused_phase_a_only_ms": a_only_ms, "inversion_ms": inv_ms}
 
 
 def pipelined_phase(dev, gen, flush, big):
     """The pipelined path through its tool on the run's 2^24-row DBs, then
-    its kernel against the plain version at the 500k problem (unit rows,
-    ragged n, Q = 64) and at 2^24 rows (the tool's queries, Q = 256)."""
+    its kernel against the two launches apart and the plain version at the
+    500k problem (unit rows, ragged n, Q = 64) and at 2^24 rows (the tool's
+    queries, Q = 256; the top-101 selection and the hot one)."""
     from merizo_search_tpu_torch.tools import perf_pipelined
 
     reset_counts()                                   # the pipelined path starts here
@@ -575,6 +589,8 @@ def pipelined_phase(dev, gen, flush, big):
                                 "--dtype", "both", "--repeats", "8"], dbs=big)
     counts = launch_counts()
     check(counts["blockmax_scan_gather"] > 0, "the pipelined path never launched bm_gather")
+    check(counts["blockmax_scan_gather.inversion"] > 0,
+          "the pipelined path never inverted a previous selection")
     for r in tool["runs"]:
         check(r["exact"], f"pipelined scan differs from the sequential fused_topk: {r}")
     modes = []
@@ -588,7 +604,9 @@ def pipelined_phase(dev, gen, flush, big):
     for dtype in ("bf16", "int8"):
         db, sc = big[dtype]
         qs = perf_pipelined.make_queries(256, dtype, gen, dev)
-        modes.append(bm_gather_mode(dtype, qs[0], qs[1], db, sc, N_BIG, True, flush))
+        for hot in (False, True):
+            modes.append(bm_gather_mode(dtype, qs[0], qs[1], db, sc, N_BIG, True, flush,
+                                        hot=hot))
     return tool, counts, modes
 
 
@@ -2454,6 +2472,11 @@ def main():
             for r in pipe_tool["runs"]:
                 ph.notes.append(f"{r['dtype']} Q={r['q']}: exact, sequential "
                                 f"{r['seq_ms']:.3f} / pipelined {r['pipe_ms']:.3f} ms a batch")
+            for r in bmg_modes:
+                ph.notes.append(f"bm_gather {r['dtype']} N={r['n']} Q={r['q']} {r['selection']}: "
+                                f"{r['ms']:.4f} ms (two launches {r['sequential_kernels_ms']:.4f}, "
+                                f"phase A alone {r['fused_phase_a_only_ms']:.4f}, inversion "
+                                f"{r['inversion_ms']:.4f}, bound {r['bound_ms']:.4f})")
 
         with Phase("probes") as ph:
             probe_tools, probe_counts, mini_modes, stream_modes, splits = probes_phase(
@@ -2589,6 +2612,7 @@ def main():
 
         from merizo_search_tpu_torch.ops import blockmax as bmx
         from merizo_search_tpu_torch.ops import gather as gth
+        from merizo_search_tpu_torch.ops import pipelined as pip
 
         dtypes = {"bf16": torch.bfloat16, "int8": torch.int8}
         # the tile width N each batch gets, and the stages and the dynamic
@@ -2662,12 +2686,23 @@ def main():
                             "turns; equal to it bit for bit"),
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
-                  {"dtype": "bf16", "q": 256, "n": N_BIG},
-                  pipe_counts["blockmax_scan_gather"], geometry=walk_geom,
-                  ptxas=ptxas_rows(ptx, "bm_gather_kernel"),
+                  {"dtype": "bf16", "q": 256, "n": N_BIG, "selection": "top"},
+                  pipe_counts["blockmax_scan_gather"],
+                  inversion_launches=pipe_counts["blockmax_scan_gather.inversion"],
+                  kernels="bm_gather_kernel (phase A's walk, csrc/blockmax.cuh walk_blocks, "
+                          "scoring the previous selection on its ring slots); inversion "
+                          "bb_count, bb_alloc (gather.cu), bb_gather_rows (bm_gather.cu)",
+                  per_batch_ms={f"{r['dtype']} Q={r['q']}": {
+                      "sequential": r["seq_ms"], "pipelined": r["pipe_ms"]}
+                      for r in pipe_tool["runs"]},
+                  geometry={**walk_geom, "dynamic_smem": {
+                      f"{k} N={n}": pip.bm_gather_layout(d, n)["launch"]
+                      for k, d in dtypes.items() for n in bmx.TILE_WIDTHS}},
+                  ptxas=ptxas_rows(ptx, "bm_gather_kernel", "bb_gather_rows"),
                   yardstick="sequential_kernels_ms: phase A then phase C (int8: with the "
                             "carried block scales), two launches, same inputs; "
-                            "fused_phase_a_only_ms: this kernel with an empty previous selection"),
+                            "fused_phase_a_only_ms: this kernel with an empty previous "
+                            "selection; inversion_ms: invert_previous alone (inside ms)"),
             entry("mini_scan", "merizo_search_tpu_torch/csrc/probes.cu (phase A's walk, "
                   "csrc/blockmax.cuh walk_blocks: TMA ring, every score from "
                   "csrc/scan_common.cuh score_issue, wgmma)",

@@ -57,14 +57,15 @@
 //
 // The epilogue is an object with hooks (`walk_blocks` is the one walk of
 // every phase-A-shaped kernel: phase A, bm_gather.cu, slab_interleave.cu and
-// probes.cu's mini_scan differ only in it). Phase A's (`BlockMaxEpi`) folds
-// each half's accumulator into one running max a column a thread (the
-// thread's four rows), then a reduce-scatter by shuffles over the 8 row
-// groups leaves each lane the warp's max of N/32 columns, which go to a
-// small shared buffer; the consumer's 128 threads meet at a named barrier
-// and one thread a query takes the max over the 4 warps and hands it to a
-// store policy: `BmStore` scales it, floors it at NEG_CAP and writes BM.
-// Only BM reaches device memory.
+// probes.cu's mini_scan differ only in it; bm_gather.cu's also keeps a
+// block's slot past its two halves, through the slot hooks of WalkHooks).
+// Phase A's (`BlockMaxEpi`) folds each half's accumulator into one running
+// max a column a thread (the thread's four rows), then a reduce-scatter by
+// shuffles over the 8 row groups leaves each lane the warp's max of N/32
+// columns, which go to a small shared buffer; the consumer's 128 threads
+// meet at a named barrier and one thread a query takes the max over the 4
+// warps and hands it to a store policy: `BmStore` scales it, floors it at
+// NEG_CAP and writes BM. Only BM reaches device memory.
 // The length channel's mask: a thread's 4 rows' tl values come from the
 // slot once a block (before the slot is released), the qcap of its columns
 // from the tile's qcap values staged in shared memory, one 8-byte load a
@@ -138,6 +139,16 @@ struct WalkPos {
   }
 };
 
+// The slot hooks of the walk, with the defaults every epilogue but
+// bm_gather.cu's keeps: no bytes beside the block, and the slot released
+// before the block's second half is folded.
+struct WalkHooks {
+  __device__ __forceinline__ int slot_tx() const { return 0; }
+  __device__ __forceinline__ void load_slot(int, int, uint64_t*) const {}
+  __device__ __forceinline__ bool take_slot(int, int) { return false; }
+  __device__ __forceinline__ void slot_block(int, int) {}
+};
+
 // The walk of one CTA (THREADS threads, WalkSmem<T, N>::BYTES at smem,
 // 1024-aligned): stage the query tile once, then the producer streams the
 // range's blocks through the ring while the consumers take them in turn,
@@ -149,7 +160,13 @@ struct WalkPos {
 // block to block of a consumer (its 128 threads may meet there, on named
 // barrier 2 + wg); and in every consumer thread finish() after the last
 // block (the 256 may meet there, on named barrier 1). The slot is released
-// before half(1, ...), so what begin_block wants of it, it reads there.
+// before half(1, ...), so what begin_block wants of it, it reads there;
+// unless take_slot(s, b), called after begin_block (and the same in all of
+// the consumer's threads), returns true: then slot_block(b, s) runs after
+// end_block, on the block still in slot s, and the slot is released after
+// it. The producer thread asks the epilogue for slot_tx() more bytes on
+// the block's `full` barrier and issues them by load_slot(s, b, bar), after
+// the block's TMA.
 template <class T, int N, bool LEN, class Epi>
 __device__ __forceinline__ void walk_blocks(unsigned char* smem, const WalkPos& p,
                                             const CUtensorMap& map,
@@ -191,7 +208,8 @@ __device__ __forceinline__ void walk_blocks(unsigned char* smem, const WalkPos& 
         const int s = i % S;
         if (i >= S) mbar_wait(&empty[s], (i / S - 1) & 1);  // round i/S - 1 released
         load_block<T>(smem + s * Slot<T>::BYTES, tls + s * BLOCK, map, LEN ? tl : nullptr,
-                      p.b_begin + i, &full[s]);
+                      p.b_begin + i, &full[s], epi.slot_tx());
+        epi.load_slot(s, p.b_begin + i, &full[s]);
       }
     }
   } else {
@@ -201,6 +219,7 @@ __device__ __forceinline__ void walk_blocks(unsigned char* smem, const WalkPos& 
       const int s = i % S;
       mbar_wait(&full[s], (i / S) & 1);
       epi.begin_block(p.b_begin + i, tls + s * BLOCK);
+      const bool keep = epi.take_slot(s, p.b_begin + i);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         typename T::Acc acc[N / 2];
@@ -208,13 +227,18 @@ __device__ __forceinline__ void walk_blocks(unsigned char* smem, const WalkPos& 
                           qt, N * ATOM_B);
         wgmma_wait<0>();
         fence_acc(acc);
-        if (h == 1) {  // the warp's reads of slot s are done
+        if (h == 1 && !keep) {  // the warp's reads of slot s are done
           __syncwarp();
           if (p.lane == 0) mbar_arrive(&empty[s]);
         }
         epi.half(h, acc);
       }
       epi.end_block(p.b_begin + i, (i / CONSUMERS) & 1);
+      if (keep) {
+        epi.slot_block(p.b_begin + i, s);
+        __syncwarp();
+        if (p.lane == 0) mbar_arrive(&empty[s]);
+      }
     }
     epi.finish();
   }
@@ -276,7 +300,7 @@ __device__ __forceinline__ void consumers_max(float v, float* buf, float* out) {
 // store.finish(*this), which may ask for the max of what a thread stored
 // (thread_max) or of what the CTA stored for each query (each_query_max).
 template <class T, int N, bool LEN, class Store>
-struct BlockMaxEpi {
+struct BlockMaxEpi : WalkHooks {
   using Acc = typename T::Acc;
   using L = WalkSmem<T, N>;
   static constexpr int V = N / 4, K = (N + 127) / 128;
@@ -426,8 +450,8 @@ struct BmStore {
 // [chunk * blocks_per_cta, +blocks_per_cta), through the DB's tensor map.
 // Needs THREADS threads and WalkSmem<T, N>::LAUNCH bytes at `smem_raw`. LEN
 // compiles the length channel (tl, qcap) in. blockmax_kernel runs it with
-// the CTA's grid coordinates; bm_gather.cu runs it from the phase-A part of
-// its grid; slab_interleave.cu also passes `part` [nq, nchunks], which gets
+// the CTA's grid coordinates (bm_gather.cu runs the same walk and store with
+// its own epilogue); slab_interleave.cu also passes `part` [nq, nchunks], which gets
 // the max of the BM values the CTA wrote for each query (the chunk's
 // superblock max). Callers without it pass a literal nullptr.
 template <class T, int N, bool LEN>

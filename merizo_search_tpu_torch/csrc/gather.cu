@@ -85,18 +85,6 @@ cudaError_t launch_gather_f32(const float* q, const float* db, const float* tl,
 constexpr int COUNT_THREADS = 256;
 constexpr int PAD_SLOTS = 64;
 
-// Workspace sections in int32s, each a multiple of 4 (16-byte aligned):
-// cnt [8(nb+1)] (histogram, then cursor) and hdr [4] (zeroed together),
-// off [9(nb+1)], dist [nb], list [m].
-inline long long by_block_ws(int nb, long long m, long long* sec) {
-  const long long c = 8LL * (nb + 1), o = (9LL * (nb + 1) + 3) & ~3LL,
-                  d = ((long long)nb + 3) & ~3LL;
-  const long long s[5] = {0, c, c + 4, c + 4 + o, c + 4 + o + d};
-  if (sec != nullptr)
-    for (int i = 0; i < 5; ++i) sec[i] = s[i];
-  return s[4] + m;
-}
-
 __global__ void __launch_bounds__(COUNT_THREADS)
 bb_count(const int* __restrict__ bidx, int* __restrict__ cnt, int* __restrict__ list, int kb,
          int m, int nb, bool scatter) {

@@ -58,11 +58,10 @@ struct GatherSmem {
 };
 
 // One CTA's work: query `qi` against its selected column `col`, through the
-// DB's tensor map into one slot. Needs GTHREADS threads (threadIdx.x <
-// GTHREADS; a caller with more returns the others first: the body meets on
+// DB's tensor map into one slot. Needs GTHREADS threads (the body meets on
 // named barrier 1) and GatherSmem<T>::LAUNCH bytes at `smem_raw`.
-// gather_kernel runs it with the CTA's grid coordinates, bm_gather.cu from
-// the phase-C part of its grid. With pad_neg, bidx -1 is padding (NEG_CAP,
+// gather_kernel runs it with the CTA's grid coordinates, gather_variants.cu's
+// `full` mode on the same grid. With pad_neg, bidx -1 is padding (NEG_CAP,
 // nothing read); without, a negative index scores block 0, as the TPU
 // gather variants clamp it (gather_variants.cu).
 template <class T>
@@ -333,6 +332,24 @@ struct ByBlockSmem {
   static_assert(TL % 16 == 0 && BAR % 8 == 0, "ByBlockSmem alignment");
   static_assert(BB_CTAS<T> * (LAUNCH + SMEM_RESERVED) <= SMEM_SM, "the launch bound's CTAs");
 };
+
+// The inversion's workspace in int32s (gather.cu builds the CSR there;
+// bm_gather.cu reads it too), sections each a multiple of 4 (16-byte
+// aligned): cnt [8(nb+1)] (histogram, then cursor) and hdr [4] (zeroed
+// together), off [9(nb+1)], dist [nb], list [m]; `sec` (when non-null)
+// gets their five offsets.
+inline long long by_block_ws(int nb, long long m, long long* sec) {
+  const long long c = 8LL * (nb + 1), o = (9LL * (nb + 1) + 3) & ~3LL,
+                  d = ((long long)nb + 3) & ~3LL;
+  const long long s[5] = {0, c, c + 4, c + 4 + o, c + 4 + o + d};
+  if (sec != nullptr)
+    for (int i = 0; i < 5; ++i) sec[i] = s[i];
+  return s[4] + m;
+}
+
+// The inversion of bidx [nq, kb] over nb blocks into the CSR in ws, on the
+// stream with no sync (gather.cu).
+cudaError_t invert_blocks(const int* bidx, int* ws, int nq, int kb, int nb, cudaStream_t stream);
 
 inline size_t by_block_f32_smem() {
   return (size_t)F32Slot::BYTES + BB_NQ * DIM * sizeof(float);

@@ -92,7 +92,7 @@ struct RawStore {
 // the block's own step: no head is held across blocks, so a CTA's range
 // may span steps.
 template <class T, int N>
-struct HeadsEpi {
+struct HeadsEpi : WalkHooks {
   using Acc = typename T::Acc;
   const WalkPos& p;
   int* __restrict__ keys;

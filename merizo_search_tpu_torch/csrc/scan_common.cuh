@@ -186,12 +186,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
 
 // Block b of the DB (rows b*128 .. +127) into `slot`, and with tl non-null
 // its 128 length-channel values into tls, all completing on bar (one
-// arrival). One thread calls it.
+// arrival, which also expects `extra_tx` bytes of copies the caller issues
+// on bar next). One thread calls it.
 template <class T>
 __device__ __forceinline__ void load_block(unsigned char* slot, float* tls, const CUtensorMap& map,
                                            const float* __restrict__ tl, long long b,
-                                           uint64_t* bar) {
-  mbar_expect_tx(bar, Slot<T>::BYTES + (tl != nullptr ? TL_BYTES : 0));
+                                           uint64_t* bar, int extra_tx = 0) {
+  mbar_expect_tx(bar, Slot<T>::BYTES + (tl != nullptr ? TL_BYTES : 0) + extra_tx);
 #pragma unroll
   for (int a = 0; a < T::ATOMS; ++a)
     tma_load(slot + a * Slot<T>::ATOM, map, bar, a * (ATOM_B / (int)sizeof(typename T::In)),
@@ -199,16 +200,22 @@ __device__ __forceinline__ void load_block(unsigned char* slot, float* tls, cons
   if (tl != nullptr) bulk_load(tls, tl + b * BLOCK, TL_BYTES, bar);
 }
 
-// 16-byte chunk c of row r of a tile of `rows` rows (atom pitch rows*128)
-// at dst, in the swizzled layout: the row's bytes c*16 .. +15 from src, or
-// zeros where src is null.
+// Byte offset of 16-byte chunk c of row r in a tile of `rows` rows (atom
+// pitch rows*128) in the swizzled layout.
+__device__ __forceinline__ int sw_chunk(int rows, int r, int c) {
+  const int a = c / (ATOM_B / 16), k = c % (ATOM_B / 16);
+  return a * rows * ATOM_B + r * ATOM_B + ((k ^ (r & 7)) * 16);
+}
+
+// 16-byte chunk c of row r of a tile of `rows` rows at dst, in the
+// swizzled layout: the row's bytes c*16 .. +15 from src, or zeros where src
+// is null.
 template <class T>
 __device__ __forceinline__ void stage_row_chunk(unsigned char* dst, int rows, int r, int c,
                                                 const typename T::In* src) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
   if (src != nullptr) v = reinterpret_cast<const uint4*>(src)[c];
-  const int a = c / (ATOM_B / 16), k = c % (ATOM_B / 16);
-  *reinterpret_cast<uint4*>(dst + a * rows * ATOM_B + r * ATOM_B + ((k ^ (r & 7)) * 16)) = v;
+  *reinterpret_cast<uint4*>(dst + sw_chunk(rows, r, c)) = v;
 }
 
 // ---- wgmma ----------------------------------------------------------------

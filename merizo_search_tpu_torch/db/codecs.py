@@ -413,6 +413,11 @@ class FlatDB:
             blk = blk / np.maximum(n, 1e-12)
         return blk
 
+    def iter_blocks(self, batch_size: int):
+        """Yield (offset, block) over the embedding matrix (dbutil.py:33-35)."""
+        for i0 in range(0, self.size, batch_size):
+            yield i0, self.read_rows(i0, i0 + batch_size, normalised=False)
+
     def read_rows_quant(self, lo: int, hi: int, kind: str):
         """Quantised sidecar rows [lo:hi). int8 -> (int8 block, f32 scales);
         bf16 -> uint16 block of bfloat16 bits. For int8, lo must fall on a QUANT_BLOCK boundary

@@ -98,6 +98,13 @@ def _to_float(v, default=0.0):
         return default
 
 
+def _to_int(v, default=0):
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return default
+
+
 def read_ca_mmcif(path: str, chain: str = "A") -> dict:
     """CA-only mmCIF reader. Prefers auth_asym_id for chain matching (what
     PDB-derived files label chains with), falling back to label_asym_id."""

@@ -10,9 +10,12 @@ package's module; `read_ca` dispatches to the native C++ scan
 
 from __future__ import annotations
 
+import os
+import uuid
+
 import numpy as np
 
-from ..utils.residues import (EXCLUDE_AA, SPECIAL_AA_CONVERT, THREE_TO_ONE,
+from ..utils.residues import (EXCLUDE_AA, ONE_TO_THREE, SPECIAL_AA_CONVERT, THREE_TO_ONE,
                               seq_from_three)
 
 ATOM_DTYPE = [
@@ -231,6 +234,27 @@ def backbone_to_ca(mol: np.ndarray) -> np.ndarray:
 def get_xyz(mol: np.ndarray) -> np.ndarray:
     """Coordinates as [N, 3] float64 (reference returns [3, N]; we use [N, 3])."""
     return np.stack([mol["x"], mol["y"], mol["z"]], axis=-1)
+
+
+def write_ca_pdb(tmp_dir: str, coords: np.ndarray, sequence: str, name: str | None = None) -> str:
+    """Write CA coordinates + sequence as a minimal PDB (for TM rescoring).
+
+    Parity: programs/Foldclass/utils.py:14-39 (write_pdb).
+    """
+    assert len(coords) == len(sequence), "coords/sequence length mismatch"
+    if name is None:
+        name = str(uuid.uuid4())
+    filename = os.path.join(tmp_dir, name + ".pdb")
+    lines = []
+    for i, (coord, aa) in enumerate(zip(coords, sequence), start=1):
+        lines.append(
+            f"ATOM  {i: >5}  CA  {ONE_TO_THREE.get(aa, 'UNK'): >3} A{i: >4}    "
+            f"{coord[0]: >8.3f}{coord[1]: >8.3f}{coord[2]: >8.3f}  1.00  0.00\n"
+        )
+    lines.append("END\n")
+    with open(filename, "w") as fh:
+        fh.writelines(lines)
+    return filename
 
 
 def write_pdb_records(mol: np.ndarray, path: str, comments=None) -> None:

@@ -99,6 +99,10 @@ def library() -> ctypes.CDLL:
         lib.mst_bm_gather.restype = ci
         lib.mst_bm_gather.argtypes = [ci, vp, vp, vp, vp, ci, ci, ll, ci, ci, vp,
                                       vp, vp, vp, ci, ci, vp]
+        lib.mst_bm_gather_prep.restype = ci
+        lib.mst_bm_gather_prep.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.mst_bm_gather_layout.restype = ci
+        lib.mst_bm_gather_layout.argtypes = [ci, ci, vp]
         lib.mst_mini_scan.restype = ci
         lib.mst_mini_scan.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                       ci, vp]

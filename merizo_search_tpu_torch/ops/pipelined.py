@@ -5,9 +5,12 @@ the previous batch in one kernel launch.
 CUDA tensors and runs `blockmax_scan_gather_plain`, built from the plain
 versions of phases A and C, for CPU tensors. The kernel replaces the Pallas
 `_bm_gather_kernel` of the JAX package; its header says what bounds it on
-the H100. `fused_topk_step` drives it with the JAX `fused_topk_step`
-contract. The engine does not use it: it is the measured experiment of
-overlapping phase C with the next batch's phase A (PERF.md).
+the H100: one pass over the DB, phase A's walk, that also scores the
+previous batch's selected blocks on the ring slots that hold them, after
+`invert_previous` has inverted that selection block-major. `fused_topk_step`
+drives it with the JAX `fused_topk_step` contract. The engine does not use
+it: it is the measured experiment of overlapping phase C with the next
+batch's phase A (PERF.md).
 
 Contract of `blockmax_scan_gather`, for q [Q, 128] this batch, pv_q
 [Qp, 128] and pv_bidx [Qp, KB] int32 the previous batch's queries and
@@ -31,6 +34,7 @@ from .gather import gather_plain
 from .topk import BLOCK
 
 launches = 0   # kernel launches since the last reset (plain runs not counted)
+inversions = 0  # invert_previous calls (a memset and four kernels each) since then
 PLAIN_CHUNK = 1 << 20   # DB rows per phase-A piece of the plain version
 
 
@@ -65,6 +69,53 @@ def blockmax_scan_gather_plain(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
     return bm, gather_plain(pv_q, db, pv_bidx, n_valid, scale_sel=pv_scale_sel)
 
 
+def bm_gather_layout(dtype, n: int) -> dict:
+    """The kernel's shared-memory layout for tile width n, read from the
+    built library (csrc/bm_gather.cu `BmGatherSmem`): byte offsets of the
+    consumers' B tiles, their pass entries and the ring's offset windows
+    (phase A's `WalkSmem` comes first), the layout's bytes, and what a
+    launch asks for (plus 1024 bytes of alignment slack). Builds the
+    library: needs nvcc."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(_build.library().mst_bm_gather_layout(_DTYPE_CODE[dtype], n, out),
+                        "bm_gather_layout")
+    return dict(zip(("bt", "meta", "win", "bytes", "launch"), out))
+
+
+def invert_previous(pv_q, pv_bidx, nb: int, pv_scale_sel=None):
+    """The previous selection as the kernel reads it, built on the card
+    (csrc/bm_gather.cu `mst_bm_gather_prep`): ws, the block-major inversion
+    of pv_bidx over nb blocks (csrc/gather.cu's CSR, int32); lq [M, 128],
+    the rows of pv_q in the CSR's list order; lss [M] float32, pv_scale_sel
+    in that order (None without). CUDA tensors, M = Qp*KB > 0; launches on
+    the current stream, no sync."""
+    global inversions
+    from . import _build
+
+    nqp, kb = pv_bidx.shape
+    m, dev = nqp * kb, pv_q.device
+    if not 0 < m < 2 ** 31:
+        raise ValueError(f"the inversion takes 0 < Qp*KB < 2^31 entries, got {m}")
+    args = [_build.ptr(pv_q, "pv_q", pv_q.dtype, device=dev),
+            _build.ptr(pv_bidx, "pv_bidx", torch.int32, (nqp, kb), dev),
+            _build.ptr(pv_scale_sel, "pv_scale_sel", torch.float32, (nqp, kb), dev)]
+    lib = _build.library()
+    ws = torch.empty(lib.mst_by_block_ws(nb, m, None), dtype=torch.int32, device=dev)
+    lq = torch.empty((m, 128), dtype=pv_q.dtype, device=dev)
+    lss = None if pv_scale_sel is None else torch.empty(m, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mst_bm_gather_prep(_DTYPE_CODE[pv_q.dtype], *args, ws.data_ptr(),
+                                    lq.data_ptr(), None if lss is None else lss.data_ptr(),
+                                    nqp, kb, nb, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "invert_previous")
+    inversions += 1
+    return ws, lq, lss
+
+
 def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
                          pv_scale_sel=None):
     """(BM [Q, Npad/128], prev [Qp, KB*128]) float32 (module docstring).
@@ -86,17 +137,19 @@ def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
     args = [_build.ptr(q, "q", db.dtype, device=dev),
             _build.ptr(db, "db", db.dtype, device=dev),
             _build.ptr(scales, "scales", torch.float32, (npad,), dev)]
-    pv = [_build.ptr(pv_q, "pv_q", db.dtype, device=dev),
-          _build.ptr(pv_bidx, "pv_bidx", torch.int32, (nqp, kb), dev),
-          _build.ptr(pv_scale_sel, "pv_scale_sel", torch.float32, (nqp, kb), dev)]
+    _build.ptr(pv_q, "pv_q", db.dtype, device=dev)
     bm = torch.empty((nq, nb), dtype=torch.float32, device=dev)
     prev = torch.empty((nqp, kb * BLOCK), dtype=torch.float32, device=dev)
     if nq == 0 and (nqp == 0 or kb == 0):
         return bm, prev
+    ws = lq = lss = None
+    if nqp * kb:
+        ws, lq, lss = invert_previous(pv_q, pv_bidx, nb, pv_scale_sel)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
         rc = _build.library().mst_bm_gather(
             _DTYPE_CODE[db.dtype], *args, bm.data_ptr(), nq, nb, int(n_valid),
-            *launch_geometry(q, nb), *pv, prev.data_ptr(), nqp, kb,
+            *launch_geometry(q, nb), ptr(ws), ptr(lq), ptr(lss), prev.data_ptr(), nqp, kb,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan_gather")
     launches += 1

@@ -1,5 +1,7 @@
-"""Device times of the fused scan's two kernels at the shapes PERF.md
-reports: phase A (blockmax_scan) and phase C (gather_block_scores).
+"""Device times of the fused scan's kernels at the shapes PERF.md reports:
+phase A (blockmax_scan), phase C (gather_block_scores) and the pipelined
+scan's kernel (blockmax_scan_gather, with the pipelined and sequential ms a
+batch of tools/perf_pipelined).
 
 Phase A at 2^24 rows for Q = 32, 64, 128 and 256 (one a query tile width),
 bf16 and int8, and at Q = 256 with the length channel on (tl uniform in
@@ -7,11 +9,16 @@ bf16 and int8, and at Q = 256 with the length channel on (tl uniform in
 search shape (500,096 rows, Q = 32) with the channel on and off. Phase C on
 the blocks phase B picks from each BM: Q = 32, k = 10 (KB 12) at the search
 shape and Q = 256, k = 100 (KB 102) at 2^24 rows (int8 with the selected
-blocks' scales). Each time is a CUDA-event mean over --iters launches with
-the L2 flushed before each, beside its bound (bytes over 3.35 TB/s or
-operations over the dtype's peak, whichever is larger; `phase_a_bound`,
-`phase_c_bound`) and, for phase A, the library call's time (`torch.matmul`
-or `torch._int_mm` of the whole score matrix). chip_smoke.py's kernels
+blocks' scales). The pipelined kernel on a batch and the previous batch's
+top-101 blocks (int8 with their scales), Q 64 at the search shape and Q 256
+at 2^24 rows, beside phase A then phase C launched apart on the same inputs
+and itself with no previous selection (phase A alone); the pipelined and
+the sequential scan's ms a batch at Q 256, 2^24 rows. Each time is a
+CUDA-event mean over --iters launches with the L2 flushed before each,
+beside its bound (bytes over 3.35 TB/s or operations over the dtype's
+peak, whichever is larger; `phase_a_bound`, `phase_c_bound`,
+`bm_gather_bound`) and, for phase A, the library call's time
+(`torch.matmul` or `torch._int_mm` of the whole score matrix). chip_smoke.py's kernels
 phase runs `phase_rows` at 2^24 rows and shares the bounds. The DB is the JAX
 tools' synthetic one (tools/_bench_util.make_db).
 
@@ -20,6 +27,7 @@ from a checkout of another commit to compare two versions in one call:
 
     python -m merizo_search_tpu_torch.tools.perf_scan [--log2-rows 24]
         [--search-rows 500096] [--iters 10] [--label NAME] [--device cuda|cpu]
+        [--only phases|pipelined]
 
 Prints the device line, then one JSON line {"label", "rows": [...]}.
 """
@@ -31,9 +39,10 @@ import sys
 
 import torch
 
-from ..ops import blockmax, gather
+from ..ops import blockmax, gather, pipelined
 from ..ops.fused_scan import select_blocks, selected_scales
 from . import _bench_util as bu
+from . import perf_pipelined
 
 
 def library_product(q, db):
@@ -63,6 +72,45 @@ def phase_c_bound(nq, isz, bidx, dtype, masked=False, scale_sel=False, row_scale
     nbytes = (nblk * 128 * row + nq * 128 * isz + bidx.numel() * 4 * (2 if scale_sel else 1)
               + (nq * 4 if masked else 0) + bidx.numel() * 128 * 4)
     return bu.bound(nbytes, 2 * int(valid.numel()) * 128 * 128, dtype)
+
+
+def bm_gather_bound(nq, npad, isz, bidx, dtype, scaled=False):
+    """bu.bound of the pipelined kernel on Q = nq this batch and the previous
+    selection bidx [Qp, KB]: the DB read once (the selected blocks are its
+    rows), both batches' queries, bidx (and scale_sel), one scale a block in
+    int8, BM and the [Qp, KB*128] output; phase A's operations and 2*128*128
+    a selected (non-padding) column."""
+    nqp, kb = bidx.shape
+    nb = npad // 128
+    nbytes = (npad * 128 * isz + (nq + nqp) * 128 * isz + bidx.numel() * 4
+              + (nb * 4 + bidx.numel() * 4 if scaled else 0)
+              + nq * nb * 4 + nqp * kb * 128 * 4)
+    ops = 2 * nq * npad * 128 + 2 * int((bidx >= 0).sum()) * 128 * 128
+    return bu.bound(nbytes, ops, dtype)
+
+
+def bm_gather_row(db, sc, n, nq, k, iters, flush, dev, gen):
+    """The pipelined kernel on a batch of nq queries and the previous batch's
+    top-(k+1) blocks, timed beside phase A then phase C launched apart and
+    beside itself with no previous selection."""
+    dtype = "int8" if sc is not None else "bf16"
+    q, pv_q = perf_pipelined.make_queries(nq, dtype, gen, dev)[:2]
+    bidx = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, k)
+    ss = None if sc is None else selected_scales(sc, bidx)
+    ms = bu.time_ms(lambda: pipelined.blockmax_scan_gather(q, db, n, pv_q, bidx, sc, ss),
+                    dev, iters, flush)
+    apart = bu.time_ms(lambda: (blockmax.blockmax_scan(q, db, n, scales=sc),
+                                gather.gather_block_scores(pv_q, db, bidx, n, scale_sel=ss)),
+                       dev, iters, flush)
+    empty = bidx.new_empty((nq, 0))
+    a_only = bu.time_ms(lambda: pipelined.blockmax_scan_gather(q, db, n, pv_q, empty, sc),
+                        dev, iters, flush)
+    b_ms, b_by = bm_gather_bound(nq, db.shape[0], db.element_size(), bidx, dtype,
+                                 sc is not None)
+    return {"kernel": "blockmax_scan_gather", "dtype": dtype, "n": db.shape[0], "q": nq,
+            "kb": bidx.shape[1], "ms": ms, "two_launches_ms": apart,
+            "phase_a_alone_ms": a_only, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def phase_rows(db, sc, n, qs, masks, ks, iters, flush, dev, gen, on_bm=None):
@@ -111,20 +159,40 @@ def main(argv=None):
                    help="rows of the search shape's DB (the CLI search's 500,000 entries)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--label", default="")
+    p.add_argument("--only", choices=("phases", "pipelined"), default=None,
+                   help="phases A and C alone, or the pipelined kernel and scan alone")
     args = p.parse_args(argv)
     dev, gen = bu.setup(args)
     flush = bu.flush_buffer(dev)
     rows = []
+    phases, pipe = args.only != "pipelined", args.only != "phases"
     for dtype in ("bf16", "int8"):
         db, sc = bu.make_db(args.search_rows, dtype, gen, dev)
-        rows += phase_rows(db, sc, args.search_rows, (32,), (32,), ((32, 10),), args.iters,
-                           flush, dev, gen)
+        if phases:
+            rows += phase_rows(db, sc, args.search_rows, (32,), (32,), ((32, 10),),
+                               args.iters, flush, dev, gen)
+        if pipe:
+            rows.append(bm_gather_row(db, sc, args.search_rows, 64, 100, args.iters, flush,
+                                      dev, gen))
         n = 1 << args.log2_rows
         db, sc = bu.make_db(n, dtype, gen, dev)
-        rows += phase_rows(db, sc, n, (32, 64, 128, 256), (256,), ((256, 100),), args.iters,
-                           flush, dev, gen)
+        if phases:
+            rows += phase_rows(db, sc, n, (32, 64, 128, 256), (256,), ((256, 100),),
+                               args.iters, flush, dev, gen)
+        if pipe:
+            rows.append(bm_gather_row(db, sc, n, 256, 100, args.iters, flush, dev, gen))
+            r = perf_pipelined.run(db, sc, n, 100,
+                                   perf_pipelined.make_queries(256, dtype, gen, dev), 8, dev)
+            rows.append({"kernel": "pipelined_scan", "dtype": dtype, "n": n, "q": 256,
+                         "exact": r["exact"], "pipelined_ms": r["pipe_ms"],
+                         "sequential_ms": r["seq_ms"]})
         del db, sc
     for r in rows:
+        if r["kernel"] == "pipelined_scan":
+            print(f"pipelined scan {r['dtype']} N={r['n']} Q={r['q']}: {r['pipelined_ms']:.4f}"
+                  f" ms a batch (sequential {r['sequential_ms']:.4f}), exact {r['exact']}",
+                  flush=True)
+            continue
         print(f"{r['kernel']} {r['dtype']} N={r['n']} Q={r['q']}"
               + (f" KB={r['kb']}" if "kb" in r else f" mask={r['mask']}")
               + f": {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']})", flush=True)

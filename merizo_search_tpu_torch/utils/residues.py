@@ -27,6 +27,8 @@ THREE_TO_ONE = {
     "HIP": "H", "HSD": "H", "HSE": "H", "LYN": "K",
 }
 
+ONE_TO_THREE = {v: k for k, v in THREE_TO_ONE.items()}
+
 # Extended map of the Merizo feature path (includes PAD -> X).
 THREE_TO_ONE_EXT = dict(THREE_TO_ONE)
 THREE_TO_ONE_EXT.update({"PAD": "X", "SEC": "C", "MSE": "M", "PYL": "K"})

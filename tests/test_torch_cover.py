@@ -107,7 +107,7 @@ _DT = {torch.bfloat16: ("Bf16", 2), torch.int8: ("Int8", 1)}
 
 def _headers():
     text = "".join(open(os.path.join(CSRC, f)).read()
-                   for f in ("scan_common.cuh", "blockmax.cuh", "gather.cuh"))
+                   for f in ("scan_common.cuh", "blockmax.cuh", "gather.cuh", "bm_gather.cu"))
     return re.sub(r"//[^\n]*", "", text)
 
 
@@ -130,6 +130,8 @@ def cuda_layout(struct, dtype, **params):
         e = expr.replace("(int)sizeof(typename T::In)", str(in_bytes))
         e = e.replace("(int)sizeof(BBMeta)", "12")            # BBMeta: an int and two floats
         e = re.sub(r"Slot<T>::(\w+)", lambda m: str(ev(slot[m.group(1)], slot)), e)
+        e = re.sub(r"(\w+)<T, N>::(\w+)",
+                   lambda m: str(cuda_layout(m.group(1), dtype, **params)[m.group(2)]), e)
         e = re.sub(r"T::(\w+)", lambda m: str(ev(t_members[m.group(1)], t_members)), e)
         e = e.replace("/", "//")
         env = {}
@@ -155,6 +157,24 @@ def test_walk_smem_fits_one_cta_and_aligns_the_slots(dtype, n):
     assert slot["BYTES"] % 1024 == 0 and lay["QT"] % 1024 == 0 and n * 128 % 1024 == 0
     assert lay["TL"] % 16 == 0 and lay["QCAP"] % 16 == 0 and lay["BAR"] % 8 == 0
     assert lay["BYTES"] == lay["BAR"] + 16 * lay["S"] == lay["LAUNCH"] - 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n", blockmax.TILE_WIDTHS)
+def test_bm_gather_smem_fits_one_cta(dtype, n):
+    """The pipelined kernel's shared memory (csrc/bm_gather.cu
+    BmGatherSmem): phase A's WalkSmem unchanged at its start, then a
+    16-row B tile a consumer on the swizzle period, the pass entries and
+    the ring's 48-byte offset windows on 16 bytes (bulk copies), all under
+    the 227 KB of one CTA at every tile width, N = 256 included."""
+    lay, walk = cuda_layout("BmGatherSmem", dtype, N=n), cuda_layout("WalkSmem", dtype, N=n)
+    row_bytes = cuda_layout("Slot", dtype)["ROWB"]
+    assert lay["BT"] >= walk["BYTES"] and lay["BT"] % 1024 == 0
+    assert lay["META"] == lay["BT"] + 2 * 16 * row_bytes and (16 * 128) % 1024 == 0
+    assert lay["WIN"] % 16 == 0 and lay["BYTES"] == lay["WIN"] + walk["S"] * 48
+    assert lay["LAUNCH"] == lay["BYTES"] + 1024 <= SMEM_CTA
+    if dtype == torch.bfloat16 and n == 256:
+        assert lay["LAUNCH"] == 226_752
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])

@@ -502,3 +502,86 @@ def test_built_layouts_fit_the_card(cuda, dtype):
         assert lay["tl"] % 16 == 0 and lay["qcap"] % 16 == 0 and lay["bar"] % 8 == 0
     lay = gather.gather_layout(dtype)
     assert 6 * (lay["launch"] + 1024) <= per_sm and lay["bt"] % 1024 == 0
+
+
+# The pipelined kernel as one pass over the DB (csrc/bm_gather.cu): the
+# previous selection inverted block-major and scored on phase A's ring
+# slots. Each case against phase A then phase C launched alone, bit for bit:
+# every previous query selecting query 0's blocks (hot blocks listing Qp
+# entries: Qp/16 passes at Qp 256), an all-padding selection, KB 0, Q 300
+# (two query tiles walk each block; one scores its lists), the straddling
+# block in a second column (rows past n_valid), one block three times in
+# each row (residue lists longer than Qp/8), and int8 with and without the
+# carried scales.
+BMG_CASES = ["hot", "all_padding", "kb0", "two_tiles", "ragged", "repeated"]
+
+
+def _bm_gather_selection(case, base):
+    if case == "hot":
+        return base[:1].expand(base.shape[0], -1).contiguous()
+    if case == "all_padding":
+        return torch.full_like(base, -1)
+    if case == "kb0":
+        return base[:, :0].contiguous()
+    bidx = base.clone()
+    if case == "ragged":
+        bidx[:, 1] = base[:, -1]
+    elif case == "repeated":
+        bidx[:, 1:4] = bidx[:, :1]
+    return bidx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, with_ss", [("bf16", False), ("int8", True), ("int8", False)])
+@pytest.mark.parametrize("case", BMG_CASES)
+def test_bm_gather_selections_equal_two_launches(cuda, odd, dtype, with_ss, case):
+    q, db, sc = _on(cuda, *odd[dtype])
+    n = odd["n"]
+    nq = {"hot": 256, "two_tiles": 300}.get(case, 64)
+    cur, pv_q = q[:nq].contiguous(), q.flip(0)[:nq].contiguous()
+    base = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, 9)
+    bidx = _bm_gather_selection(case, base)
+    ss = selected_scales(sc, bidx) if with_ss else None
+    n0, i0 = pipelined.launches, pipelined.inversions
+    bm, prev = pipelined.blockmax_scan_gather(cur, db, n, pv_q, bidx, sc, ss)
+    torch.cuda.synchronize()
+    assert pipelined.launches == n0 + 1
+    assert pipelined.inversions == i0 + (bidx.numel() > 0)
+    assert torch.equal(bm, blockmax.blockmax_scan(cur, db, n, scales=sc))
+    kw = {} if ss is None else {"scale_sel": ss}
+    want = gather.gather_block_scores(pv_q, db, bidx, n, **kw)
+    assert prev.shape == want.shape and torch.equal(prev, want)
+    if case == "all_padding":
+        assert bool((prev <= NEG_CAP).all())
+    if case == "ragged":   # the straddling block's rows past n_valid are NEG_CAP
+        cols = prev.view(nq, -1, 128)[:, 1]
+        assert bool((cols[:, n % 128:] <= NEG_CAP).all()) and bool((cols[:, :n % 128] > NEG_CAP).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_bm_gather_with_no_current_batch(cuda, odd, dtype):
+    """Q = 0 (the drain of a pipeline with nothing new): the walk still
+    scores the previous selection."""
+    q, db, sc = _on(cuda, *odd[dtype])
+    n = odd["n"]
+    pv_q = q[:40].contiguous()
+    bidx = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, 5)
+    bm, prev = pipelined.blockmax_scan_gather(q[:0], db, n, pv_q, bidx, sc)
+    torch.cuda.synchronize()
+    assert bm.shape == (0, db.shape[0] // 128)
+    assert torch.equal(prev, gather.gather_block_scores(pv_q, db, bidx, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_bm_gather_layout_fits_the_card(cuda, dtype):
+    """The pipelined kernel's shared memory as built (csrc/bm_gather.cu
+    BmGatherSmem, read from the library): phase A's layout first, the B
+    tiles on the swizzle period, one CTA at every tile width."""
+    props = torch.cuda.get_device_properties(cuda)
+    per_cta = getattr(props, "shared_memory_per_block_optin", 232_448)
+    for n in blockmax.TILE_WIDTHS:
+        lay, walk = pipelined.bm_gather_layout(dtype, n), blockmax.walk_layout(dtype, n)
+        assert walk["bytes"] <= lay["bt"] and lay["bt"] % 1024 == 0
+        assert lay["win"] % 16 == 0 and lay["launch"] <= per_cta

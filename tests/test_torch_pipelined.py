@@ -173,6 +173,43 @@ def test_blockmax_scan_gather_plain_matches_jax(runs):
             assert (np.abs(got - want)[~masked] <= _tol(want)[~masked]).all()
 
 
+@pytest.mark.parametrize("selection", ["hot", "all_padding", "repeated"])
+def test_blockmax_scan_gather_plain_on_edge_selections_matches_jax(runs, selection):
+    """The selections the card's block-major pass treats apart: every
+    previous query selecting the same blocks (hot blocks), nothing but
+    padding, and one block in several columns of each row."""
+    dtype, db, scales, qs = runs["dtype"], runs["db"], runs["scales"], runs["qs"]
+    nb = N // 128
+    rng = np.random.default_rng(6)
+    if selection == "hot":
+        bidx = np.repeat(rng.integers(0, nb, size=(1, 7)), Q, axis=0)
+    elif selection == "all_padding":
+        bidx = np.full((Q, 7), -1)
+    else:
+        bidx = rng.integers(0, nb, size=(Q, 7))
+        bidx[:, 1:4] = bidx[:, :1]
+    bidx = bidx.astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        _, _, jprev = jps.blockmax_scan_gather(
+            _jax(qs[0]), _jax(db), N_VALID, _jax(qs[1]), _jax(bidx), tile=TILE[dtype],
+            scales=_jax(scales))
+    jprev = np.asarray(jprev)[:, :bidx.shape[1] * 128]
+    _, prev = pipelined.blockmax_scan_gather(
+        _torch(qs[0]), _torch(db), N_VALID, _torch(qs[1]), torch.from_numpy(bidx),
+        scales=_torch(scales))
+    prev = prev.numpy()
+    masked = jprev <= NEG_CAP
+    np.testing.assert_array_equal(prev <= NEG_CAP, masked)
+    assert masked.all() == (selection == "all_padding")
+    if dtype == "int8":
+        np.testing.assert_array_equal(prev, jprev)
+    else:
+        assert (np.abs(prev - jprev)[~masked] <= _tol(jprev)[~masked]).all()
+    if selection == "repeated":
+        p3 = prev.reshape(Q, 7, 128)
+        assert (p3[:, 1:4] == p3[:, :1]).all()
+
+
 def test_blockmax_scan_gather_wrapper_is_the_plain_version_on_cpu(runs):
     db, scales, qs = _torch(runs["db"]), _torch(runs["scales"]), runs["qs"]
     bidx = torch.tensor([[0, -1, 5]] * Q, dtype=torch.int32)
