@@ -507,29 +507,35 @@ def fused_phase(dev, gen):
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0: a path starts here."""
-    from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
-                                             probes, slab_interleave)
+    from merizo_search_tpu_torch.utils import profiling
 
-    blockmax.launches = gather.launches = gather.launches_f32 = 0
-    gather.launches_by_block = gather.launches_by_block_f32 = 0
-    pipelined.launches = pipelined.inversions = slab_interleave.launches = 0
-    for counts in (probes.launches, gather_variants.launches):
-        for name in counts:
-            counts[name] = 0
+    profiling.reset_counters()
 
 
 def launch_counts():
+    """The launch counters (utils/profiling, named by each wrapper's module
+    constants) under this script's names."""
     from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
                                              probes, slab_interleave)
+    from merizo_search_tpu_torch.utils import profiling
 
-    return {"blockmax_scan": blockmax.launches, "gather_block_scores": gather.launches,
-            "gather_block_scores.f32": gather.launches_f32,
-            "gather_block_scores_by_block": gather.launches_by_block,
-            "gather_block_scores_by_block.f32": gather.launches_by_block_f32,
-            "blockmax_scan_gather": pipelined.launches,
-            "blockmax_scan_gather.inversion": pipelined.inversions, **probes.launches,
-            "slab_scan": slab_interleave.launches,
-            **{f"gather_variant.{m}": n for m, n in gather_variants.launches.items()}}
+    names = {"blockmax_scan": blockmax.LAUNCHES, "gather_block_scores": gather.LAUNCHES,
+             "gather_block_scores.f32": gather.LAUNCHES_F32,
+             "gather_block_scores_by_block": gather.LAUNCHES_BY_BLOCK,
+             "gather_block_scores_by_block.f32": gather.LAUNCHES_BY_BLOCK_F32,
+             "blockmax_scan_gather": pipelined.LAUNCHES,
+             "blockmax_scan_gather.inversion": pipelined.INVERSIONS,
+             "mini_scan": probes.MINI_SCAN_LAUNCHES,
+             "stream_probe": probes.STREAM_PROBE_LAUNCHES,
+             "slab_scan": slab_interleave.LAUNCHES,
+             **{f"gather_variant.{m}": n for m, n in gather_variants.LAUNCHES.items()}}
+    return {k: profiling.counter(n) for k, n in names.items()}
+
+
+def scan_launches_since(before: dict) -> dict:
+    """Phase A's and phase C's launches since `before` (launch_counts)."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in ("blockmax_scan", "gather_block_scores")}
 
 
 def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100, hot=False):
@@ -851,7 +857,6 @@ def write_mmap_tables(prefix, name_records, coords_of, pool, dim):
 def e2e_phase(dev, tmp):
     from merizo_search_tpu_torch import cli
     from merizo_search_tpu_torch.db.codecs import FlatDB, write_quantized_sidecar
-    from merizo_search_tpu_torch.ops import blockmax, gather
     from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
     from merizo_search_tpu_torch.utils import profiling
 
@@ -890,7 +895,7 @@ def e2e_phase(dev, tmp):
     runs = {}
     for prec in ("bf16", "int8"):
         profiling.reset()
-        before = (blockmax.launches, gather.launches)
+        before = launch_counts()
         out = os.path.join(tmp, f"res_{prec}")
         cli.main(["search", *pdbs, prefix, out, "-k", "10", "-d", "cuda",
                   "--precision", prec, "--mmap_cov_filter", "--output_headers",
@@ -910,8 +915,7 @@ def e2e_phase(dev, tmp):
             check(float(r["max_tm"]) >= 0.9, f"{prec}: {qname} TM-score {r['max_tm']} < 0.9")
         t = profiling.timings()
         runs[prec] = {"phase_s": {k: round(v[0], 4) for k, v in t.items()},
-                      "launches": {"blockmax_scan": blockmax.launches - before[0],
-                                   "gather_block_scores": gather.launches - before[1]}}
+                      "launches": scan_launches_since(before)}
         check(all(v > 0 for v in runs[prec]["launches"].values()),
               f"{prec}: a kernel was not launched on the main path: {runs[prec]['launches']}")
     return runs, launch_counts(), {"pdbs": pdbs, "weights": weights, "prefix": prefix,
@@ -977,7 +981,6 @@ def createdb_phase(dev, tmp):
 
     from merizo_search_tpu_torch import cli
     from merizo_search_tpu_torch.db.codecs import FlatDB
-    from merizo_search_tpu_torch.ops import blockmax, gather
     from merizo_search_tpu_torch.pipeline import createdb
     from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
     from merizo_search_tpu_torch.utils import profiling
@@ -1064,7 +1067,7 @@ def createdb_phase(dev, tmp):
     reset_counts()                                 # the createdb search path starts here
     out["search"] = {}
     for prec in ("bf16", "int8"):
-        before = (blockmax.launches, gather.launches)
+        before = launch_counts()
         res = os.path.join(tmp, f"self_{prec}")
         t = time.perf_counter()
         cli.main(["search", *queries, prefix, res, "-k", "10", "-d", "cuda",
@@ -1079,8 +1082,7 @@ def createdb_phase(dev, tmp):
             check(r is not None and r["target"] == name,
                   f"{prec}: {name} is not its own rank-1 hit ({r and r['target']})")
             check(float(r["max_tm"]) >= 0.99, f"{prec}: {name} self TM-score {r['max_tm']}")
-        launched = {"blockmax_scan": blockmax.launches - before[0],
-                    "gather_block_scores": gather.launches - before[1]}
+        launched = scan_launches_since(before)
         check(all(v > 0 for v in launched.values()), f"{prec}: scan kernels not launched")
         out["search"][prec] = {"cli_s": dt, "launches": launched}
     return out, launch_counts()

@@ -26,13 +26,14 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .topk import BLOCK
+
+LAUNCHES = profiling.declare("blockmax.launches")   # kernel launches (plain runs not counted)
 
 NEG_CAP = -3.4e38
 INT_MASKED = -(2 ** 31) + 1
 _DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1}
-
-launches = 0   # kernel launches since the last reset (plain runs not counted)
 
 
 def _validate(q, db, tl, qcap, scales):
@@ -120,10 +121,10 @@ def launch_geometry(q, nb: int) -> tuple[int, int]:
 def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
     """Phase A: BM [Q, Npad/128] float32 (module docstring). CUDA tensors
     launch the kernel (or raise); CPU tensors run the plain version."""
-    global launches
     _validate(q, db, tl, qcap, scales)
     if q.device.type == "cpu":
-        return blockmax_plain(q, db, n_valid, tl, qcap, scales)
+        with profiling.phase("scan.phase_a", q.device):
+            return blockmax_plain(q, db, n_valid, tl, qcap, scales)
     from . import _build
 
     nq, npad = q.shape[0], db.shape[0]
@@ -139,10 +140,15 @@ def blockmax_scan(q, db, n_valid: int, tl=None, qcap=None, scales=None):
     out = torch.empty((nq, nb), dtype=torch.float32, device=dev)
     if nq == 0 or nb == 0:
         return out
-    with torch.cuda.device(dev):       # the launch and its smem attribute: q's card
+    geometry = launch_geometry(q, nb)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the launch and its smem attribute on q's card. Phase A's device span
+    # opens at the launch: the card has no work queued before it, so the
+    # host's work above would count as device time
+    with torch.cuda.device(dev), profiling.phase("scan.phase_a", dev):
         rc = _build.library().mst_blockmax_scan(
             _DTYPE_CODE[db.dtype], *args, out.data_ptr(), nq, nb, int(n_valid),
-            *launch_geometry(q, nb), torch.cuda.current_stream(dev).cuda_stream)
+            *geometry, stream)
     _build.check_launch(rc, "blockmax_scan")
-    launches += 1
+    profiling.count(LAUNCHES)
     return out

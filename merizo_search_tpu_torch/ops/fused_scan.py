@@ -18,12 +18,17 @@ Phases A and C compute a row's score through one device routine, so the
 cover is exact: results are the exact top-k of the stored-precision scores
 (for int8, of the quantised scores). CPU tensors run the kernels' plain
 versions, which compute the same contract.
+
+Each phase is a device span of utils/profiling, recorded only while a
+torch profiler runs: "scan.phase_b", "scan.phase_c" and "scan.final"
+here, "scan.phase_a" inside `blockmax_scan` around its launch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .blockmax import blockmax_scan
 from .gather import gather_block_scores
 from .topk import BLOCK
@@ -61,12 +66,16 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
         tl = (tlen.to(torch.float32) * cov).contiguous()
         qcap = qlen.to(torch.float32).contiguous()
 
+    dev = q.device
     bm = blockmax_scan(q, db, n_valid, tl, qcap, scales)
-    bidx = select_blocks(bm, n_valid, k)
-    scale_sel = None if scales is None else selected_scales(scales, bidx)
-    scores = gather_block_scores(q, db, bidx, n_valid, tl, qcap,
-                                 scale_sel=scale_sel)
-    return final_topk(scores, bidx, k)
+    with profiling.phase("scan.phase_b", dev):
+        bidx = select_blocks(bm, n_valid, k)
+        scale_sel = None if scales is None else selected_scales(scales, bidx)
+    with profiling.phase("scan.phase_c", dev):
+        scores = gather_block_scores(q, db, bidx, n_valid, tl, qcap,
+                                     scale_sel=scale_sel)
+    with profiling.phase("scan.final", dev):
+        return final_topk(scores, bidx, k)
 
 
 def selected_scales(scales, bidx):

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from .blockmax import NEG_CAP, _DTYPE_CODE
 from .topk import BLOCK
 
@@ -39,10 +40,10 @@ _GATHER_CODE = {**_DTYPE_CODE, torch.float32: 2}
 
 RES = 8   # residue classes of a query index: its N slot in a tensor-core n-tile
 
-launches = 0   # kernel launches since the last reset (plain runs not counted)
-launches_f32 = 0   # of which in the f32 mode (the IVF rerank)
-launches_by_block = 0       # block-major launches (gather_block_scores_by_block)
-launches_by_block_f32 = 0   # of which in the f32 mode
+LAUNCHES = profiling.declare("gather.launches")   # kernel launches (plain runs not counted)
+LAUNCHES_F32 = profiling.declare("gather.launches_f32")   # of which in the f32 mode (the IVF rerank)
+LAUNCHES_BY_BLOCK = profiling.declare("gather.launches_by_block")   # block-major launches
+LAUNCHES_BY_BLOCK_F32 = profiling.declare("gather.launches_by_block_f32")   # of which f32
 
 
 def gather_layout(dtype) -> dict:
@@ -123,7 +124,6 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
                         scale_sel=None, scales=None):
     """Phase C: [Q, KB*128] float32 (module docstring). CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain version."""
-    global launches, launches_f32
     _validate(q, db, bidx, tl, qcap, scale_sel, scales)
     if q.device.type == "cpu":
         return gather_plain(q, db, bidx, n_valid, tl, qcap, scale_sel, scales)
@@ -140,8 +140,9 @@ def gather_block_scores(q, db, bidx, n_valid: int, tl=None, qcap=None,
             int(n_valid),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(rc, "gather_block_scores")
-    launches += 1
-    launches_f32 += db.dtype == torch.float32
+    profiling.count(LAUNCHES)
+    if db.dtype == torch.float32:
+        profiling.count(LAUNCHES_F32)
     return out
 
 
@@ -220,7 +221,6 @@ def gather_block_scores_by_block(q, db, bidx, n_valid: int, tl=None, qcap=None,
     probe gather and rerank). `out`: an optional float32 [Q, KB*128] on q's
     device to write into. CUDA tensors launch the kernels (or raise); CPU
     tensors run the plain version."""
-    global launches_by_block, launches_by_block_f32
     _validate(q, db, bidx, tl, qcap, scale_sel, scales)
     nq, kb = bidx.shape
     if out is not None and (out.dtype != torch.float32 or out.device != q.device
@@ -249,6 +249,7 @@ def gather_block_scores_by_block(q, db, bidx, n_valid: int, tl=None, qcap=None,
             _GATHER_CODE[db.dtype], *args, optr, ws.data_ptr(), nq, kb, nb, int(n_valid),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(rc, "gather_block_scores_by_block")
-    launches_by_block += 1
-    launches_by_block_f32 += db.dtype == torch.float32
+    profiling.count(LAUNCHES_BY_BLOCK)
+    if db.dtype == torch.float32:
+        profiling.count(LAUNCHES_BY_BLOCK_F32)
     return out

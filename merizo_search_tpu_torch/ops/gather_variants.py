@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .blockmax import _DTYPE_CODE
 from .gather import gather_plain
 from .probes import xor_words
@@ -40,7 +41,8 @@ MODES = ("dma_only", "concat_only", "full", "int32view")
 G = 34                 # the JAX tool's group and selection width
 KB = 102
 
-launches = {m: 0 for m in MODES}   # kernel launches a mode, since the last reset
+# kernel launches a mode (plain runs not counted)
+LAUNCHES = {m: profiling.declare(f"gather_variants.{m}.launches") for m in MODES}
 
 
 def _validate(q, db, bidx, mode, g):
@@ -117,7 +119,7 @@ def gather_variant(q, db, bidx, mode: str, g: int = G):
                 _DTYPE_CODE[db.dtype], MODES.index(mode), *args, out.data_ptr(),
                 sink.data_ptr(), nq, kb, g, torch.cuda.current_stream(dev).cuda_stream)
         _build.check_launch(rc, "gather_variant")
-        launches[mode] += 1
+        profiling.count(LAUNCHES[mode])
     if mode == "full":
         return out, None
     return out, sink[0].to(torch.int64) & 0xFFFFFFFF

@@ -28,13 +28,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .blockmax import _DTYPE_CODE, blockmax_plain, launch_geometry
 from .fused_scan import final_topk, select_blocks, selected_scales
 from .gather import gather_plain
 from .topk import BLOCK
 
-launches = 0   # kernel launches since the last reset (plain runs not counted)
-inversions = 0  # invert_previous calls (a memset and four kernels each) since then
+LAUNCHES = profiling.declare("pipelined.launches")   # kernel launches (plain runs not counted)
+INVERSIONS = profiling.declare("pipelined.inversions")   # invert_previous calls (a memset and four kernels each)
+
 PLAIN_CHUNK = 1 << 20   # DB rows per phase-A piece of the plain version
 
 
@@ -93,7 +95,6 @@ def invert_previous(pv_q, pv_bidx, nb: int, pv_scale_sel=None):
     the rows of pv_q in the CSR's list order; lss [M] float32, pv_scale_sel
     in that order (None without). CUDA tensors, M = Qp*KB > 0; launches on
     the current stream, no sync."""
-    global inversions
     from . import _build
 
     nqp, kb = pv_bidx.shape
@@ -112,7 +113,7 @@ def invert_previous(pv_q, pv_bidx, nb: int, pv_scale_sel=None):
                                     lq.data_ptr(), None if lss is None else lss.data_ptr(),
                                     nqp, kb, nb, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "invert_previous")
-    inversions += 1
+    profiling.count(INVERSIONS)
     return ws, lq, lss
 
 
@@ -121,7 +122,6 @@ def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
     """(BM [Q, Npad/128], prev [Qp, KB*128]) float32 (module docstring).
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
-    global launches
     _validate(q, db, pv_q, pv_bidx, scales, pv_scale_sel)
     if q.device.type == "cpu":
         return blockmax_scan_gather_plain(q, db, n_valid, pv_q, pv_bidx, scales,
@@ -152,7 +152,7 @@ def blockmax_scan_gather(q, db, n_valid: int, pv_q, pv_bidx, scales=None,
             *launch_geometry(q, nb), ptr(ws), ptr(lq), ptr(lss), prev.data_ptr(), nqp, kb,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "blockmax_scan_gather")
-    launches += 1
+    profiling.count(LAUNCHES)
     return bm, prev
 
 

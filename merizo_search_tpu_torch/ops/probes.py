@@ -23,14 +23,17 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .blockmax import _DTYPE_CODE, phase_a_geometry
 from .topk import BLOCK
 
 TILE = 32768         # perf_int8_floor's fixed tile (the JAX DEFAULT_TILE)
 MODES = ("none", "reduce")
-PLAIN_STEPS = 1 << 20   # DB rows per piece of mini_scan_plain
 
-launches = {"mini_scan": 0, "stream_probe": 0}   # since the last reset
+# kernel launches (plain runs not counted)
+MINI_SCAN_LAUNCHES = profiling.declare("probes.mini_scan.launches")
+STREAM_PROBE_LAUNCHES = profiling.declare("probes.stream_probe.launches")
+PLAIN_STEPS = 1 << 20   # DB rows per piece of mini_scan_plain
 
 
 def geometry(nq: int, nsteps: int, nbt: int, sms: int):
@@ -118,7 +121,7 @@ def _kernel_call(q, db, tile, nslab, reduce_mode):
                                    parts.data_ptr(), nq, nsteps, nbt, (tile // nslab) // BLOCK,
                                    int(reduce_mode == "reduce"), n, bpc, stream)
         _build.check_launch(rc, "mini_scan")
-        launches["mini_scan"] += 1
+        profiling.count(MINI_SCAN_LAUNCHES)
 
     return out, parts, launch
 
@@ -207,5 +210,5 @@ def stream_probe(x, i: float, tile: int):
             _build.ptr(x, "x", torch.int8, device=dev), o.data_ptr(), sink.data_ptr(),
             d, tile, nsteps, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "stream_probe")
-    launches["stream_probe"] += 1
+    profiling.count(STREAM_PROBE_LAUNCHES)
     return o, sink[0].to(torch.int64) & 0xFFFFFFFF

@@ -25,14 +25,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .blockmax import _DTYPE_CODE, blockmax_plain, tile_width
 from .topk import BLOCK
+
+LAUNCHES = profiling.declare("slab_interleave.launches")   # kernel launches (plain runs not counted)
 
 TILE = 32768            # the JAX tool's default (the JAX DEFAULT_TILE)
 NSLABS = (1, 2, 4, 8)   # the values the kernel takes
 PLAIN_ROWS = 1 << 20    # DB rows per piece of slab_scan_plain
-
-launches = 0   # kernel launches since the last reset (plain runs not counted)
 
 
 def _validate(q, db, tile, nslab, scales):
@@ -74,7 +75,6 @@ def slab_scan(q, db, n_valid: int, tile: int = TILE, nslab: int = 2, scales=None
     (or raise): it writes bm and each slab's max, and one amax folds the
     nslab slab maxima of a tile into sbm. CPU tensors run the plain
     version."""
-    global launches
     _validate(q, db, tile, nslab, scales)
     if q.device.type == "cpu":
         return slab_scan_plain(q, db, n_valid, tile, nslab, scales, sbm)
@@ -97,5 +97,5 @@ def slab_scan(q, db, n_valid: int, tile: int = TILE, nslab: int = 2, scales=None
             None if part is None else part.data_ptr(), nq, npad // BLOCK, int(n_valid),
             tile_width(nq), tile // BLOCK, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "slab_scan")
-    launches += 1
+    profiling.count(LAUNCHES)
     return bm, None if part is None else part.amax(dim=2)

@@ -152,7 +152,8 @@ def scan_rows(query, rows, n_valid: int, k: int, tlen, qlen, mincov: float,
                             mincov=mincov, use_len=use_len, scales=scales)
     if qs is not None:
         # per-query dequantisation (positive, so -inf stays -inf)
-        vals = vals * qs[:, None]
+        with profiling.phase("scan.dequant", vals.device):
+            vals = vals * qs[:, None]
     return vals, idxs
 
 
@@ -418,31 +419,46 @@ class SearchEngine:
 
         Returns (scores [Q, k] float32, indices [Q, k] int64) as numpy,
         descending, with -inf / -1 where fewer than k valid entries exist.
+        A call is the span "search", with the children "search.prepare"
+        (normalise, upload, quantise), "search.scan" (the launches, or the
+        whole stream), "search.copy_back" (the host waiting for the top-k)
+        and "search.finish" (the -1 mapping and the padding).
         """
-        q = _normalize_rows(np.asarray(query_embs, np.float32))
-        k_eff = min(k, self.db.size)
-        use_len = query_lens is not None and mincov > 0.0
-        qlen = torch.from_numpy(np.asarray(
-            query_lens if use_len else np.zeros(q.shape[0]), np.float32)).to(self.device)
-        if self.mode == "stream" and self.index == "ivf":
-            vals, idxs = self._stream_ivf_search(q, k_eff, qlen, float(mincov), use_len)
-        elif self.mode == "stream":
-            vals, idxs = self._stream_search(q, k_eff, qlen, float(mincov), use_len)
-        elif self.index == "ivf":
+        with profiling.phase("search"):
+            return self._search(query_embs, k, query_lens, mincov)
+
+    def _search(self, query_embs, k, query_lens, mincov):
+        flat_device = self.mode == "device" and self.index == "flat"
+        if self.mode == "device":
             self._load_resident()
-            vals, idxs = self._ivf_search(q, k_eff, qlen, float(mincov), use_len)
-        else:
-            self._load_resident()
-            vals, idxs = self._sharded_scan(self._replicas(q, qlen), self._shards,
-                                            self._n_valid, k_eff, float(mincov), use_len)
-        vals = vals.cpu().numpy().astype(np.float32)
-        idxs = idxs.cpu().numpy()
-        idxs = np.where(np.isfinite(vals), idxs, -1)
-        if vals.shape[1] < k:
-            pad_v = np.full((q.shape[0], k - vals.shape[1]), -np.inf, np.float32)
-            pad_i = np.full((q.shape[0], k - vals.shape[1]), -1, idxs.dtype)
-            vals = np.concatenate([vals, pad_v], axis=1)
-            idxs = np.concatenate([idxs, pad_i], axis=1)
+        with profiling.phase("search.prepare"):
+            q = _normalize_rows(np.asarray(query_embs, np.float32))
+            k_eff = min(k, self.db.size)
+            use_len = query_lens is not None and mincov > 0.0
+            qlen = torch.from_numpy(np.asarray(
+                query_lens if use_len else np.zeros(q.shape[0]), np.float32)).to(self.device)
+            if flat_device:
+                reps = self._replicas(q, qlen)
+        with profiling.phase("search.scan"):
+            if self.mode == "stream" and self.index == "ivf":
+                vals, idxs = self._stream_ivf_search(q, k_eff, qlen, float(mincov), use_len)
+            elif self.mode == "stream":
+                vals, idxs = self._stream_search(q, k_eff, qlen, float(mincov), use_len)
+            elif self.index == "ivf":
+                vals, idxs = self._ivf_search(q, k_eff, qlen, float(mincov), use_len)
+            else:
+                vals, idxs = self._sharded_scan(reps, self._shards, self._n_valid, k_eff,
+                                                float(mincov), use_len)
+        with profiling.phase("search.copy_back"):
+            vals = vals.cpu().numpy().astype(np.float32)
+            idxs = idxs.cpu().numpy()
+        with profiling.phase("search.finish"):
+            idxs = np.where(np.isfinite(vals), idxs, -1)
+            if vals.shape[1] < k:
+                pad_v = np.full((q.shape[0], k - vals.shape[1]), -np.inf, np.float32)
+                pad_i = np.full((q.shape[0], k - vals.shape[1]), -1, idxs.dtype)
+                vals = np.concatenate([vals, pad_v], axis=1)
+                idxs = np.concatenate([idxs, pad_i], axis=1)
         return vals, idxs
 
     def _replicas(self, q: np.ndarray, qlen) -> list[tuple]:

@@ -8,7 +8,7 @@ endpoints, limits, errors and JSON.
 
 Endpoints (JSON in/out):
   GET  /healthz        -> {"status": "ok", "db_size": N, "mode": ...}
-  GET  /stats          -> accumulated phase timings
+  GET  /stats          -> accumulated phase timings and the kernels' launch counts
   POST /search         -> body {"pdb": "<PDB text>", "chain": "A", "k": 10,
                                 "mincos": 0.5, "mintm": 0.5, "mincov": 0.7,
                                 "fastmode": false, "skip_tmalign": false}
@@ -25,9 +25,11 @@ requests with the same options are micro-batched into one scan (the scan is
 bandwidth-bound, so a 64-query batch costs little more than one query): see
 MicroBatcher. /easy-search runs on its handler thread, beside the batcher's.
 Both send work to the card; the engine's lazy builds are under its lock.
-The kernels' launch counters are plain module integers bumped without a
-lock, so two threads launching at once may miss a count; nothing reads
-them but the chip smoke test, which only asks that they rose.
+/stats gives an operator the spans' totals ("phase_timings": each name's
+seconds, self seconds and calls, e.g. "search", "search.prepare",
+"search.copy_back") and the kernels' launch counters ("counters", e.g.
+"blockmax.launches", "gather.launches"), counted under utils/profiling's
+lock from every thread.
 
 Unlike the JAX server, a warm-up that fails ends the boot: a kernel that
 does not build or launch must not hide behind a server that answers.
@@ -321,8 +323,10 @@ class SearchService:
             "uptime_s": round(time.time() - self.started, 1),
             "requests": self.n_requests,
             "search_batches": self.n_batches,
-            "phase_timings": {k: {"seconds": round(s, 4), "calls": c}
-                              for k, (s, c) in profiling.timings().items()},
+            "phase_timings": {k: {"seconds": round(t.seconds, 4),
+                                  "self_seconds": round(t.self_s, 4), "calls": t.calls}
+                              for k, t in profiling.timings().items()},
+            "counters": profiling.counters(),
         }
 
 

@@ -26,6 +26,7 @@ import torch
 from merizo_search_tpu.ops import pallas_scan as jps
 from merizo_search_tpu_torch.ops import gather, topk
 from merizo_search_tpu_torch.ops.fused_scan import selected_scales
+from merizo_search_tpu_torch.utils.profiling import counter
 
 NEG_CAP = np.float32(-3.4e38)
 # csrc/gather.cuh F32_GROUP: selected columns a CTA of the per-query f32
@@ -131,10 +132,11 @@ def test_by_block_on_cpu_equals_gather_plain(data, dtype, scale, use_len):
         kw["scale_sel"] = selected_scales(scales, bidx)
     elif scale == "scales":
         kw["scales"] = scales
-    n0 = (gather.launches, gather.launches_by_block)
+    names = (gather.LAUNCHES, gather.LAUNCHES_BY_BLOCK)
+    n0 = [counter(n) for n in names]
     got = gather.gather_block_scores_by_block(q, db, bidx, data["n_valid"], **kw)
     want = gather.gather_plain(q, db, bidx, data["n_valid"], **kw)
-    assert (gather.launches, gather.launches_by_block) == n0    # plain runs count nothing
+    assert [counter(n) for n in names] == n0    # plain runs count nothing
     assert torch.equal(got, want)
     assert (got[:, 4 * 128:5 * 128] == NEG_CAP).all()
 

@@ -23,9 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from merizo_search_tpu_torch.ops import gather, topk
+from merizo_search_tpu_torch.ops import blockmax, gather, topk
 from merizo_search_tpu_torch.ops.fused_scan import selected_scales
 from merizo_search_tpu_torch.search import ivf
+from merizo_search_tpu_torch.utils.profiling import counter
 
 NEG_CAP = -3.4e38
 NLIST, K = 32, 10
@@ -73,11 +74,11 @@ def test_f32_gather_matches_plain(cuda, mixture, use_len, scale):
     if scale == "scale_sel":
         kw["scale_sel"] = torch.from_numpy(rng.uniform(0.5, 2, bidx.shape).astype(np.float32))
     want = gather.gather_plain(*args, **kw)
-    n0 = gather.launches
+    n0 = counter(gather.LAUNCHES)
     got = gather.gather_block_scores(*[a.to(cuda) if torch.is_tensor(a) else a for a in args],
                                      **{k: v.to(cuda) for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert gather.launches == n0 + 1
+    assert counter(gather.LAUNCHES) == n0 + 1
     got = got.cpu()
     assert torch.equal(got <= NEG_CAP, want <= NEG_CAP)
     keep = want > NEG_CAP
@@ -117,11 +118,12 @@ def test_ivf_search_on_the_card_matches_the_cpu(cuda, mixture, layout, dtype, re
         if mincov:
             kw.update(tlen=torch.from_numpy(lp).to(dev), mincov=mincov, use_len=True,
                       qlen=torch.full((len(q),), 150.0, device=dev))
-        n0 = (gather.launches, gather.launches_by_block, gather.launches_by_block_f32)
+        names = (gather.LAUNCHES, gather.LAUNCHES_BY_BLOCK, gather.LAUNCHES_BY_BLOCK_F32)
+        n0 = [counter(n) for n in names]
         v, i = ivf.ivf_search(o["q"], o["db"], o["cent"], o["perm"], K, 8, **kw)
         if dev != "cpu":
-            assert (gather.launches, gather.launches_by_block, gather.launches_by_block_f32) \
-                == (n0[0], n0[1] + (2 if rerank else 1), n0[2] + rerank)
+            assert [counter(n) for n in names] \
+                == [n0[0], n0[1] + (2 if rerank else 1), n0[2] + rerank]
         res[str(dev)] = (v.cpu().numpy(), i.cpu().numpy())
     (vc, ic), (vg, ig) = res["cpu"], res[str(cuda)]
     np.testing.assert_allclose(vg, vc, atol=1e-5, rtol=0)
@@ -136,7 +138,6 @@ def test_engine_ivf_launches_phase_c(cuda, mixture, tmp_path):
     a search, two with rerank (the second in the f32 mode), no per-query
     launch and no plain fallback."""
     from merizo_search_tpu_torch.db import codecs
-    from merizo_search_tpu_torch.ops import blockmax
     from merizo_search_tpu_torch.search.engine import SearchEngine
 
     emb, q, lengths = mixture
@@ -148,12 +149,12 @@ def test_engine_ivf_launches_phase_c(cuda, mixture, tmp_path):
         eng = SearchEngine(db, "bf16", "cuda", index="ivf", ivf_nlist=NLIST, ivf_nprobe=8,
                            ivf_rerank=rerank)
         eng.search(q[:2], K)                             # builds or opens the layout
-        a0, c0 = blockmax.launches, gather.launches
-        b0, f0 = gather.launches_by_block, gather.launches_by_block_f32
+        a0, c0 = counter(blockmax.LAUNCHES), counter(gather.LAUNCHES)
+        b0, f0 = counter(gather.LAUNCHES_BY_BLOCK), counter(gather.LAUNCHES_BY_BLOCK_F32)
         vals, _ = eng.search(q, K)
-        assert gather.launches_by_block - b0 == (2 if rerank else 1)
-        assert gather.launches_by_block_f32 - f0 == rerank
-        assert blockmax.launches == a0 and gather.launches == c0
+        assert counter(gather.LAUNCHES_BY_BLOCK) - b0 == (2 if rerank else 1)
+        assert counter(gather.LAUNCHES_BY_BLOCK_F32) - f0 == rerank
+        assert counter(blockmax.LAUNCHES) == a0 and counter(gather.LAUNCHES) == c0
         assert np.isfinite(vals).all()
 
 
@@ -193,14 +194,15 @@ def _both_launches(p, bidx, n_valid, kw):
     """(per-query output, block-major output into a NaN-filled out=, a second
     block-major run): launched once each."""
     args = (p["q"], p["db"], bidx, n_valid)
-    n0 = (gather.launches, gather.launches_by_block)
+    names = (gather.LAUNCHES, gather.LAUNCHES_BY_BLOCK)
+    n0 = [counter(n) for n in names]
     want = gather.gather_block_scores(*args, **kw)
     out = torch.full_like(want, float("nan"))
     got = gather.gather_block_scores_by_block(*args, out=out, **kw)
     again = gather.gather_block_scores_by_block(*args, **kw)
     torch.cuda.synchronize()
     assert got is out
-    assert (gather.launches, gather.launches_by_block) == (n0[0] + 1, n0[1] + 2)
+    assert [counter(n) for n in names] == [n0[0] + 1, n0[1] + 2]
     return want, got, again
 
 

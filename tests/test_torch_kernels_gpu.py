@@ -25,6 +25,7 @@ from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipe
                                          slab_interleave, topk)
 from merizo_search_tpu_torch.ops.fused_scan import (cover_check, fused_topk, select_blocks,
                                                     selected_scales)
+from merizo_search_tpu_torch.utils.profiling import counter
 
 NEG_CAP = -3.4e38
 
@@ -77,10 +78,10 @@ def _on(dev, *ts):
 def test_blockmax_kernel_matches_plain(cuda, data, dtype, use_len):
     q, db, sc = data[dtype]
     lk = (data["tl"], data["qlen"]) if use_len else (None, None)
-    n0 = blockmax.launches
+    n0 = counter(blockmax.LAUNCHES)
     got = blockmax.blockmax_scan(*_on(cuda, q, db), data["n"], *_on(cuda, *lk, sc))
     torch.cuda.synchronize()
-    assert blockmax.launches == n0 + 1
+    assert counter(blockmax.LAUNCHES) == n0 + 1
     _compare(got, blockmax.blockmax_scan(q, db, data["n"], *lk, sc), dtype == "int8")
 
 
@@ -100,11 +101,11 @@ def test_gather_kernel_matches_plain(cuda, data, mode, use_len):
                                       1.0).contiguous()
     elif mode == "int8_row_scales":
         kw["scales"] = sc
-    n0 = gather.launches
+    n0 = counter(gather.LAUNCHES)
     got = gather.gather_block_scores(*_on(cuda, q, db, bidx), data["n"], *_on(cuda, *lk),
                                      **{k: v.to(cuda) for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert gather.launches == n0 + 1
+    assert counter(gather.LAUNCHES) == n0 + 1
     _compare(got, gather.gather_block_scores(q, db, bidx, data["n"], *lk, **kw),
              dtype == "int8")
 
@@ -141,12 +142,12 @@ def test_bm_gather_kernel_matches_plain(cuda, data, mode):
     bidx[::4, 2] = -1
     pv_q = q.flip(0).contiguous()
     ss = selected_scales(sc, bidx) if mode == "int8_scale_sel" else None
-    n0 = pipelined.launches
+    n0 = counter(pipelined.LAUNCHES)
     got = pipelined.blockmax_scan_gather(*_on(cuda, q, db), data["n"],
                                          *_on(cuda, pv_q, bidx, sc), pv_scale_sel=(
                                              None if ss is None else ss.to(cuda)))
     torch.cuda.synchronize()
-    assert pipelined.launches == n0 + 1
+    assert counter(pipelined.LAUNCHES) == n0 + 1
     want = pipelined.blockmax_scan_gather(q, db, data["n"], pv_q, bidx, sc, ss)
     for g, w in zip(got, want):
         _compare(g, w, dtype == "int8")
@@ -189,10 +190,10 @@ def test_mini_scan_kernel_matches_plain(cuda, data, dtype, mode, tile, nslab, nq
     q = q.repeat(5, 1)[:nq].contiguous()
     if tile > db.shape[0]:       # the fixed tile: two copies of the DB make a step
         db = torch.cat([db, db])[:tile]
-    n0 = probes.launches["mini_scan"]
+    n0 = counter(probes.MINI_SCAN_LAUNCHES)
     got, sink = probes.mini_scan(*_on(cuda, q, db), tile, nslab, mode)
     torch.cuda.synchronize()
-    assert probes.launches["mini_scan"] == n0 + 1
+    assert counter(probes.MINI_SCAN_LAUNCHES) == n0 + 1
     want, wsink = probes.mini_scan(q, db, tile, nslab, mode)
     _check_mini(got, sink, want, wsink, dtype)
 
@@ -203,11 +204,11 @@ def test_mini_scan_kernel_alone_launches_the_kernel(cuda, data, mode):
     """The timing helper launches the kernel and nothing that raises."""
     q, db, _ = _on(cuda, *data["bf16"][:2], None)
     run = probes.kernel_alone(q, db[:16384], 1024, 2, mode)
-    n0 = probes.launches["mini_scan"]
+    n0 = counter(probes.MINI_SCAN_LAUNCHES)
     run()
     run()
     torch.cuda.synchronize()
-    assert probes.launches["mini_scan"] == n0 + 2
+    assert counter(probes.MINI_SCAN_LAUNCHES) == n0 + 2
 
 
 def _steps_for_span(nq, span):
@@ -247,10 +248,10 @@ def test_stream_probe_kernel_matches_plain(cuda, data, wide, tile):
     x = data["int8"][1]
     if wide:
         x = x.view(-1, 1024)
-    n0 = probes.launches["stream_probe"]
+    n0 = counter(probes.STREAM_PROBE_LAUNCHES)
     o, sink = probes.stream_probe(x.to(cuda), 2.0, tile)
     torch.cuda.synchronize()
-    assert probes.launches["stream_probe"] == n0 + 1
+    assert counter(probes.STREAM_PROBE_LAUNCHES) == n0 + 1
     wo, wsink = probes.stream_probe(x, 2.0, tile)
     assert torch.equal(o.cpu(), wo) and sink.item() == wsink.item()
 
@@ -282,11 +283,11 @@ def test_slab_scan_kernel_matches_plain_and_blockmax(cuda, data, dtype, nslab):
     pad = 10 * 2048 - db.shape[0]
     db = torch.cat([db, db.new_zeros((pad, 128))])
     sc = None if sc is None else torch.cat([sc, sc.new_ones(pad)])
-    n0 = slab_interleave.launches
+    n0 = counter(slab_interleave.LAUNCHES)
     bm, sbm = slab_interleave.slab_scan(*_on(cuda, q, db), data["n"], 2048, nslab,
                                         *_on(cuda, sc))
     torch.cuda.synchronize()
-    assert slab_interleave.launches == n0 + 1
+    assert counter(slab_interleave.LAUNCHES) == n0 + 1
     want_bm, want_sbm = slab_interleave.slab_scan(q, db, data["n"], 2048, nslab, sc)
     _compare(bm, want_bm, dtype == "int8")
     _compare(sbm, want_sbm, dtype == "int8")
@@ -298,7 +299,7 @@ def test_slab_scan_kernel_matches_plain_and_blockmax(cuda, data, dtype, nslab):
                                               *_on(cuda, sc), sbm=False)
     torch.cuda.synchronize()
     assert none is None and torch.equal(bm_only, bm0)
-    assert slab_interleave.launches == n0 + 2
+    assert counter(slab_interleave.LAUNCHES) == n0 + 2
 
 
 @pytest.mark.gpu
@@ -313,10 +314,10 @@ def test_gather_variant_kernel_matches_plain(cuda, data, mode):
                             .astype(np.int32))
     bidx[::5, 3] = -1                 # reads block 0
     bidx[1, 7] = bidx[1, 8]           # one block twice in a group
-    n0 = gather_variants.launches[kind]
+    n0 = counter(gather_variants.LAUNCHES[kind])
     got, sink = gather_variants.gather_variant(*_on(cuda, q, db, bidx), kind, 34)
     torch.cuda.synchronize()
-    assert gather_variants.launches[kind] == n0 + 1
+    assert counter(gather_variants.LAUNCHES[kind]) == n0 + 1
     want, wsink = gather_variants.gather_variant(q, db, bidx, kind, 34)
     assert got.shape == want.shape == (q.shape[0], 3, 34, 128)
     if dtype == "bf16" and kind == "full":
@@ -542,11 +543,11 @@ def test_bm_gather_selections_equal_two_launches(cuda, odd, dtype, with_ss, case
     base = select_blocks(blockmax.blockmax_scan(pv_q, db, n, scales=sc), n, 9)
     bidx = _bm_gather_selection(case, base)
     ss = selected_scales(sc, bidx) if with_ss else None
-    n0, i0 = pipelined.launches, pipelined.inversions
+    n0, i0 = counter(pipelined.LAUNCHES), counter(pipelined.INVERSIONS)
     bm, prev = pipelined.blockmax_scan_gather(cur, db, n, pv_q, bidx, sc, ss)
     torch.cuda.synchronize()
-    assert pipelined.launches == n0 + 1
-    assert pipelined.inversions == i0 + (bidx.numel() > 0)
+    assert counter(pipelined.LAUNCHES) == n0 + 1
+    assert counter(pipelined.INVERSIONS) == i0 + (bidx.numel() > 0)
     assert torch.equal(bm, blockmax.blockmax_scan(cur, db, n, scales=sc))
     kw = {} if ss is None else {"scale_sel": ss}
     want = gather.gather_block_scores(pv_q, db, bidx, n, **kw)

@@ -25,6 +25,7 @@ from merizo_search_tpu_torch.device import make_mesh
 from merizo_search_tpu_torch.ops import blockmax, gather
 from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
 from merizo_search_tpu_torch.search.engine import SearchEngine
+from merizo_search_tpu_torch.utils.profiling import counter, reset_counters
 
 N = 20_000
 
@@ -96,12 +97,12 @@ def test_flat_mesh_equals_one_device(db_prefix, mesh, precision, stream):
     assert eng.mode == ("stream" if stream else "device")
     want = SearchEngine(db, precision, "cuda").search(q, 100, query_lens=qlen, mincov=0.7)
     eng.search(q[:1], 100)                       # residency before the counts
-    blockmax.launches = gather.launches = 0
+    reset_counters()
     got = eng.search(q, 100, query_lens=qlen, mincov=0.7)
     _assert_same(got, want, precision)
     if precision != "fp32":
         items = eng.stream_stats["superblocks"] if stream else 1
-        assert blockmax.launches == gather.launches == items * len(mesh)
+        assert counter(blockmax.LAUNCHES) == counter(gather.LAUNCHES) == items * len(mesh)
 
 
 @pytest.mark.gpu
@@ -114,12 +115,12 @@ def test_ivf_mesh_equals_one_device(db_prefix, mesh, precision, rerank):
     want = SearchEngine(db, precision, "cuda", **kw).search(q, 50, query_lens=qlen, mincov=0.7)
     eng = SearchEngine(db, precision, "cuda", mesh=mesh, **kw)
     eng.search(q[:1], 50)
-    gather.launches_by_block = gather.launches = blockmax.launches = 0
+    reset_counters()
     got = eng.search(q, 50, query_lens=qlen, mincov=0.7)
     assert eng.ivf_build_s is None               # the one-device engine's cached layout
     _assert_same(got, want, precision)
-    assert gather.launches_by_block == len(mesh) * (2 if rerank else 1)
-    assert gather.launches == blockmax.launches == 0
+    assert counter(gather.LAUNCHES_BY_BLOCK) == len(mesh) * (2 if rerank else 1)
+    assert counter(gather.LAUNCHES) == counter(blockmax.LAUNCHES) == 0
 
 
 @pytest.mark.gpu
@@ -129,10 +130,10 @@ def test_stream_ivf_mesh_equals_one_device(db_prefix, mesh):
     kw = dict(index="ivf", ivf_nlist=64, ivf_nprobe=8, max_device_gb=1e-9, stream_block=4000)
     want = SearchEngine(db, "bf16", "cuda", **kw).search(q, 50, query_lens=qlen, mincov=0.7)
     eng = SearchEngine(db, "bf16", "cuda", mesh=mesh, **kw)
-    blockmax.launches = 0
+    reset_counters()
     got = eng.search(q, 50, query_lens=qlen, mincov=0.7)
     _assert_same(got, want, "bf16")
-    assert blockmax.launches == eng.stream_stats["groups"] * len(mesh)
+    assert counter(blockmax.LAUNCHES) == eng.stream_stats["groups"] * len(mesh)
 
 
 @pytest.mark.gpu

@@ -26,6 +26,7 @@ from merizo_search_tpu.ops import pallas_scan as jps
 from merizo_search_tpu_torch.ops import pipelined, topk
 from merizo_search_tpu_torch.ops.fused_scan import fused_topk, selected_scales
 from merizo_search_tpu_torch.tools import perf_pipelined
+from merizo_search_tpu_torch.utils.profiling import counter
 
 N, Q, K = 16384, 16, 5
 N_VALID = N - 100            # off a block edge: one straddling block
@@ -213,12 +214,12 @@ def test_blockmax_scan_gather_plain_on_edge_selections_matches_jax(runs, selecti
 def test_blockmax_scan_gather_wrapper_is_the_plain_version_on_cpu(runs):
     db, scales, qs = _torch(runs["db"]), _torch(runs["scales"]), runs["qs"]
     bidx = torch.tensor([[0, -1, 5]] * Q, dtype=torch.int32)
-    n0 = pipelined.launches
+    n0 = counter(pipelined.LAUNCHES)
     got = pipelined.blockmax_scan_gather(_torch(qs[0]), db, N_VALID, _torch(qs[1]), bidx,
                                          scales)
     want = pipelined.blockmax_scan_gather_plain(_torch(qs[0]), db, N_VALID,
                                                 _torch(qs[1]), bidx, scales)
-    assert pipelined.launches == n0          # plain runs are not launches
+    assert counter(pipelined.LAUNCHES) == n0          # plain runs are not launches
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

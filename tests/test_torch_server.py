@@ -37,6 +37,7 @@ from merizo_search_tpu_torch import cli as tcli
 from merizo_search_tpu_torch import server as srv
 from merizo_search_tpu_torch.align import tmalign as ttm
 from merizo_search_tpu_torch.db import codecs
+from merizo_search_tpu_torch.ops import blockmax
 from merizo_search_tpu_torch.pipeline.embed import embed_structures, load_foldclass_params
 
 EMB_TOL = 1e-4
@@ -139,6 +140,9 @@ def test_stats(running_server):
     assert s["db_size"] == 5 and s["mode"] == "device"
     assert s["requests"] >= 2
     assert "db_scan" in s["phase_timings"]
+    search = s["phase_timings"]["search"]
+    assert search["calls"] >= 1 and 0 <= search["self_seconds"] <= search["seconds"]
+    assert s["counters"][blockmax.LAUNCHES] == 0    # plain runs on the CPU launch nothing
 
 
 @pytest.fixture(scope="module")
