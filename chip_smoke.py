@@ -17,13 +17,17 @@ server) on the card and checks them:
             102); and the cover invariant at both shapes (Q = 32 and 256 at
             500,000 rows, every tile width at 2^24 rows; bf16 and int8, mask
             on and off): phase C's max over each selected block below
-            n_valid equals phase A's BM for it, exactly;
+            n_valid equals phase A's BM for it, exactly; then phase B's
+            select kernel (tools/perf_scan select_rows) against its plain
+            version bit for bit at TED's [256, 356,441] k 100 and CATH's
+            [256 / 32 / 1, 3,907], timed beside torch.topk;
 4. fused    fused_topk against the plain exact scan: recall@100 = 1.0 at
             N = 500,000, Q = 256, k = 100 (scores within 1e-5 are ties);
 5. e2e      the `search` CLI on a 500,000-entry mmap DB with an int8 sidecar
             and 32 query PDBs, at bf16 and int8: every query's planted row
-            is its rank-1 hit with TM-score >= 0.9, and both kernels'
-            launch counters rose during these runs.
+            is its rank-1 hit with TM-score >= 0.9, and the three scan
+            kernels' launch counters (phases A, B and C) rose during these
+            runs.
 6. pipelined the pipelined two-batch scan through its tool
             (tools/perf_pipelined: 2^24 rows, Q = 64 and 256, k = 100, bf16
             and int8): equal to the sequential fused_topk exactly on 3
@@ -389,8 +393,8 @@ def ptxas_rows(report, *kernels):
 
 
 def kernels_phase(dev, gen, flush, big):
-    """Hold both kernels against their plain versions and to the cover
-    invariant, then time them."""
+    """Hold phases A and C against their plain versions and to the cover
+    invariant, then time them; then phase B's select kernel."""
     from merizo_search_tpu_torch.ops import blockmax, gather
     from merizo_search_tpu_torch.ops.fused_scan import select_blocks
 
@@ -463,7 +467,9 @@ def kernels_phase(dev, gen, flush, big):
             row = {k: v for k, v in r.items() if k != "kernel"}
             row.update(max_abs_err=None, plain_ms=None)
             (bm_modes if r["kernel"] == "blockmax_scan" else g_modes).append(row)
-    return bm_modes, g_modes, cover
+    sel_modes = [{**{k: v for k, v in r.items() if k != "kernel"}, "max_abs_err": 0.0}
+                 for r in perf_scan.select_rows(10, flush, dev, gen)]
+    return bm_modes, g_modes, cover, sel_modes
 
 
 def recall_check(fv, fi, pv, pi, k):
@@ -516,10 +522,11 @@ def launch_counts():
     """The launch counters (utils/profiling, named by each wrapper's module
     constants) under this script's names."""
     from merizo_search_tpu_torch.ops import (blockmax, gather, gather_variants, pipelined,
-                                             probes, slab_interleave)
+                                             probes, select, slab_interleave)
     from merizo_search_tpu_torch.utils import profiling
 
     names = {"blockmax_scan": blockmax.LAUNCHES, "gather_block_scores": gather.LAUNCHES,
+             "select_blocks": select.LAUNCHES,
              "gather_block_scores.f32": gather.LAUNCHES_F32,
              "gather_block_scores_by_block": gather.LAUNCHES_BY_BLOCK,
              "gather_block_scores_by_block.f32": gather.LAUNCHES_BY_BLOCK_F32,
@@ -533,9 +540,11 @@ def launch_counts():
 
 
 def scan_launches_since(before: dict) -> dict:
-    """Phase A's and phase C's launches since `before` (launch_counts)."""
+    """Phase A's, phase B's and phase C's launches since `before`
+    (launch_counts)."""
     now = launch_counts()
-    return {k: now[k] - before[k] for k in ("blockmax_scan", "gather_block_scores")}
+    return {k: now[k] - before[k]
+            for k in ("blockmax_scan", "select_blocks", "gather_block_scores")}
 
 
 def bm_gather_mode(dtype, q, pv_q, db, sc, n, rel, flush, k=100, hot=False):
@@ -2454,10 +2463,13 @@ def main():
         flush = _bench_util.flush_buffer(dev)
         with Phase("kernels") as ph:
             big = big_dbs(gen, dev)
-            bm_modes, g_modes, cover = kernels_phase(dev, gen, flush, big)
+            bm_modes, g_modes, cover, sel_modes = kernels_phase(dev, gen, flush, big)
             ph.notes.append(f"{len(bm_modes)} phase-A and {len(g_modes)} phase-C configurations; "
                             f"cover invariant exact in {len(cover)} configurations, "
                             f"{sum(r['compared'] for r in cover)} blocks")
+            for r in sel_modes:
+                ph.notes.append(f"select Q={r['q']} NB={r['nb']} k={r['k']}: {r['ms']:.4f} ms "
+                                f"(torch.topk {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})")
 
         with Phase("fused") as ph:
             rec = fused_phase(dev, gen)
@@ -2686,6 +2698,21 @@ def main():
                          for k, c in mesh_counts.items() if "rerank" in k}},
                   yardstick="per_query_ms: gather_block_scores on the same inputs, timed in "
                             "turns; equal to it bit for bit"),
+            entry("select_blocks", "merizo_search_tpu_torch/csrc/select.cu",
+                  "none: the JAX package left phase B to XLA (merizo_search_tpu/ops/"
+                  "pallas_scan.py _select_blocks, _topk_finite)", sel_modes,
+                  {"q": 256, "nb": 356_441, "k": 100},
+                  launches["select_blocks"] + serve_counts["select_blocks"]
+                  + sum(c["select_blocks"] for c in mesh_counts.values()),
+                  launches_by_path={
+                      "search": launches["select_blocks"],
+                      "serve": serve_counts["select_blocks"],
+                      **{f"mesh_{k}": c["select_blocks"] for k, c in mesh_counts.items()
+                         if not k.startswith("ivf")}},
+                  ptxas=ptxas_rows(ptx, "select_level", "sort_tile", "sort_step", "sort_out",
+                                   "scales_of"),
+                  yardstick="library_ms: torch.topk over the same block maxima (the port "
+                            "never calls it in phase B)"),
             entry("blockmax_scan_gather", "merizo_search_tpu_torch/csrc/bm_gather.cu",
                   "merizo_search_tpu/ops/pallas_scan.py:1014", bmg_modes,
                   {"dtype": "bf16", "q": 256, "n": N_BIG, "selection": "top"},

@@ -117,6 +117,13 @@ def library() -> ctypes.CDLL:
         lib.mst_walk_layout.argtypes = [ci, ci, vp]
         lib.mst_gather_layout.restype = ci
         lib.mst_gather_layout.argtypes = [ci, vp]
+        lib.mst_select_level.restype = ci
+        lib.mst_select_level.argtypes = [ci, ci, vp, vp, ci, ll, ci, ci, ci, vp, vp, vp, vp,
+                                         vp, ci, vp]
+        lib.mst_select_sort.restype = ci
+        lib.mst_select_sort.argtypes = [vp, ci, ll, ci, vp, ll, vp, vp, vp, ci, vp]
+        lib.mst_selected_scales.restype = ci
+        lib.mst_selected_scales.argtypes = [vp, vp, vp, ll, vp]
         _lib = lib
         return _lib
 

@@ -4,13 +4,14 @@ The orchestration of the JAX package's `fused_topk`:
 
 Phase A (CUDA kernel, ops/blockmax.py): one pass over the DB that writes
     only the per-128-row block maxima BM [Q, NB].
-Phase B (plain torch): the top-(k+1) blocks of each query by BM, plus the
-    block that straddles n_valid. Cover argument: if a true top-k row's
-    block were not among the top-k blocks by max, then >= k blocks would
-    each hold a larger row. The straddling block may carry a max inflated
-    by padding rows, which can displace at most one true block, so phase B
-    takes k+1 blocks and force-includes the straddling one (as -1 in its
-    top-(k+1) slot when already selected, so no row is reported twice).
+Phase B (CUDA kernel, ops/select.py): the top-(k+1) blocks of each query
+    by BM, plus the block that straddles n_valid. Cover argument: if a
+    true top-k row's block were not among the top-k blocks by max, then
+    >= k blocks would each hold a larger row. The straddling block may
+    carry a max inflated by padding rows, which can displace at most one
+    true block, so phase B takes k+1 blocks and force-includes the
+    straddling one (as -1 in its top-(k+1) slot when already selected, so
+    no row is reported twice).
 Phase C (CUDA kernel, ops/gather.py): rescore every row of the selected
     blocks with exact masking, then the final top-k.
 
@@ -29,20 +30,17 @@ from __future__ import annotations
 import torch
 
 from ..utils import profiling
+from . import select
 from .blockmax import blockmax_scan
 from .gather import gather_block_scores
 from .topk import BLOCK
 
 
 def select_blocks(bm, n_valid: int, k: int):
-    """Phase B: bidx [Q, KB] int32 with KB = min(k+1, NB) + 1, -1 where the
-    straddling block was already selected."""
-    qn, nb = bm.shape
-    straddle = min(n_valid // BLOCK, nb - 1)
-    _, top = torch.topk(bm, min(k + 1, nb), dim=1)
-    top = torch.where(top == straddle, -1, top)
-    bidx = torch.cat([top, top.new_full((qn, 1), straddle)], dim=1)
-    return bidx.to(torch.int32).contiguous()
+    """Phase B: bidx [Q, KB] int32 with KB = min(k+1, NB) + 1, by BM
+    descending (ties by lower block id), the straddling block last and -1
+    where it was already selected (ops/select.py)."""
+    return select.phase_b(bm, n_valid, k)[0]
 
 
 def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
@@ -69,8 +67,7 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
     dev = q.device
     bm = blockmax_scan(q, db, n_valid, tl, qcap, scales)
     with profiling.phase("scan.phase_b", dev):
-        bidx = select_blocks(bm, n_valid, k)
-        scale_sel = None if scales is None else selected_scales(scales, bidx)
+        bidx, scale_sel = select.phase_b(bm, n_valid, k, scales)
     with profiling.phase("scan.phase_c", dev):
         scores = gather_block_scores(q, db, bidx, n_valid, tl, qcap,
                                      scale_sel=scale_sel)
@@ -80,10 +77,9 @@ def fused_topk(q, db, n_valid: int, k: int, tlen=None, qlen=None,
 
 def selected_scales(scales, bidx):
     """scale_sel [Q, KB] float32: the block scale of each selected block
-    (from the block-uniform per-row `scales`), 1.0 in padding columns."""
-    block_scale = scales.view(-1, BLOCK)[:, 0]
-    return torch.where(bidx >= 0, block_scale[bidx.clamp(min=0).long()],
-                       1.0).contiguous()
+    (from the block-uniform per-row `scales`), 1.0 in padding columns
+    (ops/select.py)."""
+    return select.selected_scales(scales, bidx)
 
 
 def cover_check(bm, scores, bidx, n_valid: int) -> tuple[int, int]:

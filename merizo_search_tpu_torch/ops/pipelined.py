@@ -30,8 +30,9 @@ import torch
 
 from ..utils import profiling
 from .blockmax import _DTYPE_CODE, blockmax_plain, launch_geometry
-from .fused_scan import final_topk, select_blocks, selected_scales
+from .fused_scan import final_topk
 from .gather import gather_plain
+from .select import phase_b
 from .topk import BLOCK
 
 LAUNCHES = profiling.declare("pipelined.launches")   # kernel launches (plain runs not counted)
@@ -184,8 +185,7 @@ def fused_topk_step(q, db, n_valid: int, k: int, carry, scales=None):
                          f"then {tuple(q.shape)}")
     bm, prev = blockmax_scan_gather(q, db, n_valid, carry["q"], carry["bidx"], scales,
                                     carry["scale_sel"])
-    bidx = select_blocks(bm, n_valid, k)
+    bidx, scale_sel = phase_b(bm, n_valid, k, scales)
     v, idx = final_topk(prev, carry["bidx"], k)
-    new_carry = {"q": q, "bidx": bidx,
-                 "scale_sel": None if scales is None else selected_scales(scales, bidx)}
+    new_carry = {"q": q, "bidx": bidx, "scale_sel": scale_sel}
     return (v, idx), new_carry

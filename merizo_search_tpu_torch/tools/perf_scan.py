@@ -13,7 +13,11 @@ blocks' scales). The pipelined kernel on a batch and the previous batch's
 top-101 blocks (int8 with their scales), Q 64 at the search shape and Q 256
 at 2^24 rows, beside phase A then phase C launched apart on the same inputs
 and itself with no previous selection (phase A alone); the pipelined and
-the sequential scan's ms a batch at Q 256, 2^24 rows. Each time is a
+the sequential scan's ms a batch at Q 256, 2^24 rows. Phase B's select
+kernel (ops/select.py phase_b, with the int8 DB's scales) on random block
+maxima at TED's shard shape ([256, 356,441], k 100) and CATH's ([256 / 32 /
+1, 3,907], k 100 / 10 / 10), checked against its plain version on the card
+bit for bit, beside `torch.topk` over the same maxima (`select_bound`). Each time is a
 CUDA-event mean over --iters launches with the L2 flushed before each,
 beside its bound (bytes over 3.35 TB/s or operations over the dtype's
 peak, whichever is larger; `phase_a_bound`, `phase_c_bound`,
@@ -27,7 +31,7 @@ from a checkout of another commit to compare two versions in one call:
 
     python -m merizo_search_tpu_torch.tools.perf_scan [--log2-rows 24]
         [--search-rows 500096] [--iters 10] [--label NAME] [--device cuda|cpu]
-        [--only phases|pipelined]
+        [--only phases|pipelined|select]
 
 Prints the device line, then one JSON line {"label", "rows": [...]}.
 """
@@ -39,7 +43,7 @@ import sys
 
 import torch
 
-from ..ops import blockmax, gather, pipelined
+from ..ops import blockmax, gather, pipelined, select
 from ..ops.fused_scan import select_blocks, selected_scales
 from . import _bench_util as bu
 from . import perf_pipelined
@@ -87,6 +91,45 @@ def bm_gather_bound(nq, npad, isz, bidx, dtype, scaled=False):
               + nq * nb * 4 + nqp * kb * 128 * 4)
     ops = 2 * nq * npad * 128 + 2 * int((bidx >= 0).sum()) * 128 * 128
     return bu.bound(nbytes, ops, dtype)
+
+
+def select_bound(nq, nb, k):
+    """bu.bound of phase B over BM [nq, nb]: BM read once, each level's
+    candidate (key, id) pairs written and read, bidx and scale_sel written
+    and the selected blocks' scales read; no operations counted."""
+    kk, levels = select.plan(nb, k)
+    cands = sum(nq * slices * kk * 8 * 2 for _, _, _, slices in (levels or [])[:-1])
+    return bu.bound(nq * nb * 4 + cands + nq * (kk + 1) * 12, 0, "f32")
+
+
+SELECT_SHAPES = ((256, 356_441, 100), (256, 3_907, 100), (32, 3_907, 10), (1, 3_907, 10))
+
+
+def select_rows(iters, flush, dev, gen, shapes=SELECT_SHAPES):
+    """Phase B's kernel at each (Q, NB, k): normal block maxima, n_valid
+    mid-row, block scales; checked against phase_b_plain on the same card
+    (bit for bit), timed beside the plain version and torch.topk."""
+    rows = []
+    for nq, nb, k in shapes:
+        bm = torch.randn((nq, nb), generator=gen, device=dev)
+        scales = torch.rand(nb, generator=gen, device=dev).repeat_interleave(128)
+        n = (nb // 2) * 128 + 17
+        got, want = select.phase_b(bm, n, k, scales), select.phase_b_plain(bm, n, k, scales)
+        exact = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        if not exact:
+            raise AssertionError(f"select kernel differs from its plain version at "
+                                 f"Q={nq} NB={nb} k={k}")
+        kk, levels = select.plan(nb, k)
+        b_ms, b_by = select_bound(nq, nb, k)
+        rows.append({
+            "kernel": "select", "q": nq, "nb": nb, "k": k, "kb": kk + 1,
+            "launches": select.launches(nb, k), "exact": exact,
+            "ms": bu.time_ms(lambda: select.phase_b(bm, n, k, scales), dev, iters, flush),
+            "plain_ms": bu.time_ms(lambda: select.phase_b_plain(bm, n, k, scales), dev, 3,
+                                   flush),
+            "library_ms": bu.time_ms(lambda: torch.topk(bm, kk, dim=1), dev, iters, flush),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
 
 
 def bm_gather_row(db, sc, n, nq, k, iters, flush, dev, gen):
@@ -159,14 +202,15 @@ def main(argv=None):
                    help="rows of the search shape's DB (the CLI search's 500,000 entries)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--label", default="")
-    p.add_argument("--only", choices=("phases", "pipelined"), default=None,
-                   help="phases A and C alone, or the pipelined kernel and scan alone")
+    p.add_argument("--only", choices=("phases", "pipelined", "select"), default=None,
+                   help="phases A and C alone, the pipelined kernel and scan alone, or "
+                        "phase B's select kernel alone")
     args = p.parse_args(argv)
     dev, gen = bu.setup(args)
     flush = bu.flush_buffer(dev)
-    rows = []
-    phases, pipe = args.only != "pipelined", args.only != "phases"
-    for dtype in ("bf16", "int8"):
+    rows = [] if args.only not in (None, "select") else select_rows(args.iters, flush, dev, gen)
+    phases, pipe = args.only in (None, "phases"), args.only in (None, "pipelined")
+    for dtype in ("bf16", "int8") if phases or pipe else ():
         db, sc = bu.make_db(args.search_rows, dtype, gen, dev)
         if phases:
             rows += phase_rows(db, sc, args.search_rows, (32,), (32,), ((32, 10),),
@@ -188,6 +232,11 @@ def main(argv=None):
                          "sequential_ms": r["seq_ms"]})
         del db, sc
     for r in rows:
+        if r["kernel"] == "select":
+            print(f"select Q={r['q']} NB={r['nb']} k={r['k']}: {r['ms']:.4f} ms (bound "
+                  f"{r['bound_ms']:.4f}, torch.topk {r['library_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}), {r['launches']} launches", flush=True)
+            continue
         if r["kernel"] == "pipelined_scan":
             print(f"pipelined scan {r['dtype']} N={r['n']} Q={r['q']}: {r['pipelined_ms']:.4f}"
                   f" ms a batch (sequential {r['sequential_ms']:.4f}), exact {r['exact']}",
